@@ -1,0 +1,21 @@
+"""cfgpp_tpu_torch — the PyTorch / CUDA port of cfgpp_tpu for NVIDIA Hopper.
+
+Module paths mirror ``cfgpp_tpu/``, whose JAX code is the reference each
+module is tested against.  The port imports torch and never jax; of the JAX
+package it imports only the numpy-only ``configs``, ``schedules`` and
+``weights.tokenizer``.
+
+Layer map (bottom-up):
+  csrc/       hand-written CUDA C++ kernels (sm_90a), built at first use
+  kernels/    their wrappers (kernel on a CUDA tensor, plain PyTorch on a
+              CPU tensor), the nvcc build and the ctypes loader
+  models/     CLIP text encoder, UNet2DCondition (SD-1.5 layout), VAE
+  weights/    JAX parameter trees -> the port's state dicts
+  solvers/    DDIM / DDIM-CFG++ plans, steps and the sampling loop
+  engine/     ModelBundle + DiffusionEngine (tokenize -> encode -> solve ->
+              decode)
+  utils/      image output
+  cli/        text_to_img
+"""
+
+__version__ = "0.1.0"

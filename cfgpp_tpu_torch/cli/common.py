@@ -1,0 +1,45 @@
+"""Shared CLI plumbing: bundle construction + engine creation.
+
+Counterpart of ``cfgpp_tpu/cli/common.py`` for the models the port runs.
+Weights are seeded random (``--ckpt_dir`` comes with ``from_pretrained``).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+
+MODELS = ("sd15", "tiny_sd")
+
+# Reference default negative prompt (examples/text_to_img.py:17).
+DEFAULT_NULL_PROMPT = ("low quality,jpeg artifacts,blurry,poorly drawn,ugly,"
+                       "worst quality,")
+
+
+def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim",
+                    default_nfe: int = 50) -> None:
+    parser.add_argument("--workdir", type=str, required=False)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device the models run on")
+    parser.add_argument("--null_prompt", type=str, default=DEFAULT_NULL_PROMPT)
+    parser.add_argument("--prompt", type=str, default="")
+    parser.add_argument("--cfg_guidance", type=float, default=7.5)
+    parser.add_argument("--method", type=str, default=default_method)
+    parser.add_argument("--model", type=str, default="sd15", choices=MODELS)
+    parser.add_argument("--NFE", type=int, default=default_nfe)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--resolution", type=int, default=None)
+    parser.add_argument("--dtype", type=str, default="bfloat16",
+                        choices=("bfloat16", "float32"),
+                        help="float32 runs only on the CPU: the attention "
+                             "kernel takes bf16")
+
+
+def build_engine(args) -> DiffusionEngine:
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    bundle = ModelBundle.random_init(args.model, seed=0, dtype=dtype,
+                                     device=args.device)
+    return DiffusionEngine(bundle, solver=args.method, nfe=args.NFE)

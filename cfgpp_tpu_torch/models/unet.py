@@ -1,0 +1,314 @@
+"""UNet2DConditionModel, exact path, SD-1.5 layout; counterpart of
+``cfgpp_tpu/models/unet.py``.
+
+Module names follow the diffusers state-dict layout.  The public layout is
+the JAX package's: NHWC latents in, NHWC f32 eps out, token-major
+``[B, N, H*D]`` at attention.  Inside, an NHWC tensor seen through
+``.permute(0, 3, 1, 2)`` is an NCHW tensor in channels_last memory, which
+the convolutions take as it is, and the way back to tokens is a view.
+Parameters are in the compute dtype (bf16 on the card); norms keep f32
+statistics.
+
+Covered: the conv-projection `Transformer2DModel` of SD-1.5 (and the tiny
+test config).  The linear-projection variant and SDXL's added text/time
+embedding are rejected, not approximated.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cfgpp_tpu.configs import UNetConfig
+from cfgpp_tpu_torch.models.attention import (Attention, Conv2d, GroupNorm,
+                                              LayerNorm, Linear)
+
+CrossKV = Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def sinusoidal_time_embed(timesteps: torch.Tensor, dim: int,
+                          flip_sin_to_cos: bool = True,
+                          freq_shift: float = 0.0,
+                          max_period: float = 10000.0) -> torch.Tensor:
+    """diffusers `get_timestep_embedding` semantics; f32.  [B] -> [B, dim]."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device) / (half - freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+
+
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """NCHW (channels_last) -> [B, H*W, C]; a view for channels_last input."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def _image(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, H*W, C] -> NCHW in channels_last memory (a view)."""
+    b, _, c = x.shape
+    return x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> silu -> linear_2 (diffusers `TimestepEmbedding`)."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.linear_1 = Linear(in_dim, out_dim)
+        self.linear_2 = Linear(out_dim, out_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int,
+                 eps: float):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_ch, eps=eps)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb_proj = Linear(temb_dim, out_ch)
+        self.norm2 = GroupNorm(groups, out_ch, eps=eps)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+
+    def forward(self, x, temb):
+        t = self.time_emb_proj(F.silu(temb))
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + t[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = Linear(dim, inner * 2)
+
+    def forward(self, x):
+        x_p, gate = self.proj(x).chunk(2, dim=-1)
+        return x_p * F.gelu(gate)   # erf gelu, as diffusers' GEGLU
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward: diffusers ff.net.0.proj + ff.net.2."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
+                                  Linear(inner, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, ctx_dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, num_heads, head_dim, ctx_dim)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context, kv_len=None, cached_kv=None):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context, kv_len=kv_len,
+                           cached_kv=cached_kv)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2DModel(nn.Module):
+    """Spatial transformer with 1x1-conv projections (SD-1.5 layout)."""
+
+    def __init__(self, ch: int, num_heads: int, head_dim: int, num_layers: int,
+                 ctx_dim: int, groups: int):
+        super().__init__()
+        inner = num_heads * head_dim
+        self.norm = GroupNorm(groups, ch, eps=1e-6)
+        self.proj_in = Conv2d(ch, inner, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, num_heads, head_dim, ctx_dim)
+             for _ in range(num_layers)])
+        self.proj_out = Conv2d(inner, ch, 1)
+
+    def forward(self, x, context, kv_len=None, cross_kv=None):
+        h, w = x.shape[2:]
+        t = _tokens(self.proj_in(self.norm(x)))
+        for i, blk in enumerate(self.transformer_blocks):
+            t = blk(t, context, kv_len=kv_len,
+                    cached_kv=None if cross_kv is None else cross_kv[i])
+        return self.proj_out(_image(t, h, w)) + x
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class _Block(nn.Module):
+    """Holder giving diffusers' down_blocks.N / up_blocks.N / mid_block names."""
+
+
+class UNet2DConditionModel(nn.Module):
+    """The eps-prediction network.  forward(sample [B,H,W,4] NHWC, t [B] or
+    scalar, context [B,77,cross_dim]) -> eps [B,H,W,4] f32."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        if cfg.use_linear_projection or cfg.addition_embed_type is not None:
+            raise ValueError("the PyTorch port covers the SD-1.5 UNet layout "
+                             "(conv projections, no added text/time embedding)")
+        self.config = cfg
+        b0 = cfg.block_out_channels[0]
+        temb = cfg.time_embed_dim
+        self.conv_in = Conv2d(cfg.in_channels, b0, 3, padding=1)
+        self.time_embedding = TimestepEmbedding(b0, temb)
+
+        def resnet(i, o):
+            return ResnetBlock2D(i, o, temb, cfg.norm_num_groups, cfg.norm_eps)
+
+        def transformer(ch, level):
+            heads = cfg.num_attention_heads[level]
+            return Transformer2DModel(ch, heads, ch // heads,
+                                      cfg.transformer_layers_per_block[level],
+                                      cfg.cross_attention_dim, cfg.norm_num_groups)
+
+        n_blocks = len(cfg.block_out_channels)
+        ch, skips = b0, [b0]
+        self.down_blocks = nn.ModuleList()
+        for i, (btype, out_ch) in enumerate(zip(cfg.down_block_types,
+                                                cfg.block_out_channels)):
+            blk = _Block()
+            blk.resnets = nn.ModuleList()
+            if btype == "CrossAttnDownBlock2D":
+                blk.attentions = nn.ModuleList()
+            for _ in range(cfg.layers_per_block):
+                blk.resnets.append(resnet(ch, out_ch))
+                ch = out_ch
+                if btype == "CrossAttnDownBlock2D":
+                    blk.attentions.append(transformer(out_ch, i))
+                skips.append(ch)
+            if i < n_blocks - 1:
+                blk.downsamplers = nn.ModuleList([Downsample2D(out_ch)])
+                skips.append(ch)
+            self.down_blocks.append(blk)
+
+        self.mid_block = _Block()
+        self.mid_block.resnets = nn.ModuleList([resnet(ch, ch), resnet(ch, ch)])
+        self.mid_block.attentions = nn.ModuleList([transformer(ch, n_blocks - 1)])
+
+        rev = list(reversed(cfg.block_out_channels))
+        self.up_blocks = nn.ModuleList()
+        for i, btype in enumerate(cfg.up_block_types):
+            blk = _Block()
+            blk.resnets = nn.ModuleList()
+            if btype == "CrossAttnUpBlock2D":
+                blk.attentions = nn.ModuleList()
+            for _ in range(cfg.layers_per_block + 1):
+                blk.resnets.append(resnet(ch + skips.pop(), rev[i]))
+                ch = rev[i]
+                if btype == "CrossAttnUpBlock2D":
+                    blk.attentions.append(transformer(ch, n_blocks - 1 - i))
+            if i < n_blocks - 1:
+                blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
+            self.up_blocks.append(blk)
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch, eps=cfg.norm_eps)
+        self.conv_out = Conv2d(ch, cfg.out_channels, 3, padding=1)
+        for name, tr in self.cross_attention_sites():
+            tr.site = name
+
+    def cross_attention_sites(self):
+        """(site name, Transformer2DModel) in the JAX package's site naming."""
+        for i, blk in enumerate(self.down_blocks):
+            for j, t in enumerate(getattr(blk, "attentions", [])):
+                yield f"down_blocks_{i}_attentions_{j}", t
+        yield "mid_block_attentions_0", self.mid_block.attentions[0]
+        for i, blk in enumerate(self.up_blocks):
+            for j, t in enumerate(getattr(blk, "attentions", [])):
+                yield f"up_blocks_{i}_attentions_{j}", t
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                cross_kv: Optional[CrossKV] = None) -> torch.Tensor:
+        """``cross_kv``: {site: [(k, v) per layer]} from `precompute_cross_kv`;
+        each cross-attention site then skips its to_k/to_v projections."""
+        cfg = self.config
+        dtype = self.conv_in.weight.dtype
+        b = sample.shape[0]
+        t = torch.as_tensor(timesteps, device=sample.device).expand(b)
+        emb = self.time_embedding(sinusoidal_time_embed(
+            t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
+            cfg.freq_shift).to(dtype))
+        context = encoder_hidden_states.to(dtype)
+        kv_len = context.shape[1]
+
+        def attend(tr, x):
+            ckv = None if cross_kv is None else cross_kv[tr.site]
+            return tr(x, context, kv_len=kv_len, cross_kv=ckv)
+
+        x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
+        res_stack = [x]
+        for blk in self.down_blocks:
+            attns = getattr(blk, "attentions", None)
+            for j, r in enumerate(blk.resnets):
+                x = r(x, emb)
+                if attns is not None:
+                    x = attend(attns[j], x)
+                res_stack.append(x)
+            if hasattr(blk, "downsamplers"):
+                x = blk.downsamplers[0](x)
+                res_stack.append(x)
+
+        x = self.mid_block.resnets[0](x, emb)
+        x = attend(self.mid_block.attentions[0], x)
+        x = self.mid_block.resnets[1](x, emb)
+
+        for blk in self.up_blocks:
+            attns = getattr(blk, "attentions", None)
+            for j, r in enumerate(blk.resnets):
+                x = r(torch.cat([x, res_stack.pop()], dim=1), emb)
+                if attns is not None:
+                    x = attend(attns[j], x)
+            if hasattr(blk, "upsamplers"):
+                x = blk.upsamplers[0](x)
+
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return x.permute(0, 2, 3, 1).float()
+
+
+def precompute_cross_kv(unet: UNet2DConditionModel,
+                        context: torch.Tensor) -> CrossKV:
+    """Every cross-attention site's (k, v) from the text context.
+
+    The kv projections read only the context, which is constant across the
+    sampling loop; the engine computes them once per request instead of in
+    each of the NFE UNet calls.  Same projections as the uncached forward,
+    so a cached forward equals an uncached one."""
+    ctx = context.to(unet.conv_in.weight.dtype)
+    return {name: [blk.attn2.kv(ctx) for blk in tr.transformer_blocks]
+            for name, tr in unet.cross_attention_sites()}
