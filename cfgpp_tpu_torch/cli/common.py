@@ -36,10 +36,18 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
                         choices=("bfloat16", "float32"),
                         help="float32 runs only on the CPU: the attention "
                              "kernel takes bf16")
+    parser.add_argument("--quant", type=str, default=None,
+                        choices=("dense",),
+                        help="opt-in int8 W8A8 UNet (numerics differ from "
+                             "the exact bf16 path): 'dense' quantizes the "
+                             "transformer projections through the fused "
+                             "int8 matmul kernels; convs stay bf16")
 
 
 def build_engine(args) -> DiffusionEngine:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     bundle = ModelBundle.random_init(args.model, seed=0, dtype=dtype,
                                      device=args.device)
+    if args.quant:
+        bundle = bundle.quantized(mode=args.quant)
     return DiffusionEngine(bundle, solver=args.method, nfe=args.NFE)

@@ -1,14 +1,22 @@
 // Non-causal flash-attention forward for Hopper (sm_90a), bf16 in and out.
 //
-// Replaces the Pallas TPU kernel cfgpp_tpu/kernels/flash_attention.py:
+// Replaces the Pallas TPU kernels cfgpp_tpu/kernels/flash_attention.py:
 // flash_attention_hd, both of its bodies: _kernel_single (one kv block,
-// max-free softmax) and _kernel_multi (streaming online softmax).  One
-// streaming form covers both: max-free and max-subtracted softmax are equal
-// in real arithmetic, and the running max keeps any kv length in range.
+// max-free softmax) and _kernel_multi (streaming online softmax); and
+// flash_attention_qkv_packed, the same math on a packed [B, N, 3*H*D]
+// projection.  One streaming form covers both bodies: max-free and
+// max-subtracted softmax are equal in real arithmetic, and the running max
+// keeps any kv length in range.
 //
 // Layout: token-major q [B, Nq, H*D], k/v [B, Nkv, H*D] (the projections'
-// own layout, so no head split or transpose reaches device memory).  kv rows
-// at or past kv_len are masked; the caller may pass k/v pre-padded.
+// own layout, so no head split or transpose reaches device memory), each
+// read with its own row stride.  The packed entry point passes q, k and v
+// as three channel-offset views of one [B, N, 3*H*D] array (offsets 0, H*D,
+// 2*H*D; row stride 3*H*D), so the int8 path's fused to_qkv output is read
+// in place and never sliced into copies.  The TPU kernel splits the pack at
+// d=40 for a Mosaic lane rule; Hopper has no such rule, and this kernel
+// reads every head dim in place.  kv rows at or past kv_len are masked; the
+// caller may pass k/v pre-padded.
 // Scores and the output accumulator are f32; p is rounded to bf16 before
 // p@v, as the TPU kernel does.  out = acc / max(l, 1e-37).
 //
@@ -99,7 +107,7 @@ template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, bf16* __restrict__ o, int nq, int nkv,
-          int heads, int kv_len, float scale_log2) {
+          int heads, int kv_len, float scale_log2, int64_t ldq, int64_t ldkv) {
   using P = Plan<D, BQ, BKV>;
   constexpr int DP = P::DP;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -117,13 +125,13 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int64_t ld = int64_t(heads) * D;
-  const bf16* qg = q + (int64_t(b) * nq + q0) * ld + int64_t(h) * D;
-  const bf16* kg = k + int64_t(b) * nkv * ld + int64_t(h) * D;
-  const bf16* vg = v + int64_t(b) * nkv * ld + int64_t(h) * D;
+  const int64_t ld = int64_t(heads) * D;   // the output's row stride
+  const bf16* qg = q + (int64_t(b) * nq + q0) * ldq + int64_t(h) * D;
+  const bf16* kg = k + int64_t(b) * nkv * ldkv + int64_t(h) * D;
+  const bf16* vg = v + int64_t(b) * nkv * ldkv + int64_t(h) * D;
   const int q_rows = min(BQ, nq - q0);
 
-  load_tile<D, DP, P::LDH>(qs, qg, BQ, q_rows, ld);
+  load_tile<D, DP, P::LDH>(qs, qg, BQ, q_rows, ldq);
   for (int i = threadIdx.x; i < BQ * P::LDO; i += kThreads) os[i] = 0.f;
   for (int i = threadIdx.x; i < BQ; i += kThreads) {
     ms[i] = -INFINITY;
@@ -133,8 +141,8 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kv0 = 0; kv0 < kv_len; kv0 += BKV) {
     __syncthreads();  // the previous tile's p@v has finished reading ks/vs/ps
     const int kv_rows = min(BKV, kv_len - kv0);
-    load_tile<D, DP, P::LDH>(ks, kg + int64_t(kv0) * ld, BKV, kv_rows, ld);
-    load_tile<D, DP, P::LDH>(vs, vg + int64_t(kv0) * ld, BKV, kv_rows, ld);
+    load_tile<D, DP, P::LDH>(ks, kg + int64_t(kv0) * ldkv, BKV, kv_rows, ldkv);
+    load_tile<D, DP, P::LDH>(vs, vg + int64_t(kv0) * ldkv, BKV, kv_rows, ldkv);
     __syncthreads();
 
     // s = q k^T on the tensor cores, 16x16 tiles spread over the warps
@@ -216,7 +224,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D, int BQ, int BKV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int nq, int nkv, int heads, int kv_len,
-                   cudaStream_t stream) {
+                   int64_t ldq, int64_t ldkv, cudaStream_t stream) {
   using P = Plan<D, BQ, BKV>;
   auto kern = flash_fwd<D, BQ, BKV>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -227,8 +235,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, P::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), nq, nkv, heads,
-      kv_len, scale_log2);
+      kv_len, scale_log2, ldq, ldkv);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     int batch, int nq, int nkv, int heads, int head_dim,
+                     int kv_len, int64_t ldq, int64_t ldkv, cudaStream_t s) {
+  switch (head_dim) {
+    case 40: return launch<40, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, ldq, ldkv, s);
+    case 64: return launch<64, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, ldq, ldkv, s);
+    case 80: return launch<80, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, ldq, ldkv, s);
+    case 160: return launch<160, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, ldq, ldkv, s);
+    case 512: return launch<512, 32, 32>(q, k, v, o, batch, nq, nkv, heads, kv_len, ldq, ldkv, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -241,13 +266,19 @@ extern "C" int cfgpp_flash_attention_hd(const void* q, const void* k,
                                         int nq, int nkv, int heads,
                                         int head_dim, int kv_len,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 40: return launch<40, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, s);
-    case 64: return launch<64, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, s);
-    case 80: return launch<80, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, s);
-    case 160: return launch<160, 64, 64>(q, k, v, o, batch, nq, nkv, heads, kv_len, s);
-    case 512: return launch<512, 32, 32>(q, k, v, o, batch, nq, nkv, heads, kv_len, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  const int64_t ld = int64_t(heads) * head_dim;
+  return dispatch(q, k, v, o, batch, nq, nkv, heads, head_dim, kv_len, ld, ld,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// qkv: [batch, n, 3*heads*head_dim] bf16 (q | k | v on the channel dim),
+// contiguous, 16-byte aligned; o: [batch, n, heads*head_dim] bf16.
+// Self-attention, no mask.  Returns a cudaError_t (0 on success).
+extern "C" int cfgpp_flash_attention_qkv_packed(const void* qkv, void* o,
+                                                int batch, int n, int heads,
+                                                int head_dim, void* stream) {
+  const int64_t hd = int64_t(heads) * head_dim;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  return dispatch(q, q + hd, q + 2 * hd, o, batch, n, n, heads, head_dim, n,
+                  3 * hd, 3 * hd, static_cast<cudaStream_t>(stream));
 }

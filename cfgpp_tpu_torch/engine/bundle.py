@@ -11,11 +11,15 @@ parameters live in the `nn.Module`s.  Dtype policy, as in the JAX bundle:
 
 Bundles come from `random_init` (seeded random weights; benchmarks and the
 chip smoke run) or `from_flax` (the JAX package's parameter trees, through
-`cfgpp_tpu_torch.weights.bridge`; the parity tests).
+`cfgpp_tpu_torch.weights.bridge`; the parity tests).  `quantized` gives the
+opt-in int8 W8A8 UNet (`cfgpp_tpu_torch.weights.quantize`): its int8
+weights, scales and biases are made after the dtype cast, so scales and
+biases stay f32 as in the JAX tree.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Mapping, Optional, Union
 
@@ -29,6 +33,8 @@ from cfgpp_tpu_torch.models.unet import UNet2DConditionModel
 from cfgpp_tpu_torch.models.vae import AutoencoderKL
 from cfgpp_tpu_torch.weights.bridge import (clip_text_state_dict,
                                             diffusers_state_dict)
+from cfgpp_tpu_torch.weights.quantize import (quantize_unet_,
+                                              quantized_structure_)
 
 Device = Union[str, torch.device]
 
@@ -135,11 +141,23 @@ class ModelBundle:
     @classmethod
     def from_flax(cls, config_or_name, params: Mapping[str, Any],
                   dtype: torch.dtype, device: Device,
-                  tokenizer_dir: Optional[str] = None) -> "ModelBundle":
+                  tokenizer_dir: Optional[str] = None,
+                  quant: Optional[str] = None) -> "ModelBundle":
         """Load the JAX package's ``ModelBundle.params()`` trees ({"unet",
-        "vae", "text"}; array-likes) strictly into the port's modules."""
+        "vae", "text"}; array-likes) strictly into the port's modules.
+        ``quant``: the mode of a quantized UNet tree (the JAX package's
+        ``quantized(mode).params()``)."""
         bundle = cls._empty(config_or_name, dtype, _device(device), tokenizer_dir)
+        if quant is not None:
+            quantized_structure_(bundle.unet, quant)
         bundle.unet.load_state_dict(diffusers_state_dict(params["unet"]))
         bundle.vae.load_state_dict(diffusers_state_dict(params["vae"]))
         bundle.text_encoder.load_state_dict(clip_text_state_dict(params["text"]))
         return bundle
+
+    def quantized(self, mode: str = "dense") -> "ModelBundle":
+        """A bundle whose UNet is an int8 W8A8 copy of this one's
+        (``cfgpp_tpu/engine/bundle.py:quantized``); this bundle keeps its
+        exact UNet.  Only ``mode="dense"`` is ported."""
+        unet = quantize_unet_(copy.deepcopy(self.unet), mode)
+        return dataclasses.replace(self, unet=unet)

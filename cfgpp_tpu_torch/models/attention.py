@@ -3,7 +3,8 @@ every model of the port is built from.
 
 Counterpart of ``cfgpp_tpu/models/attention.py``.  Every unmasked attention
 goes through `cfgpp_tpu_torch.kernels.flash_attention.flash_attention_hd`
-(the Hopper kernel on a CUDA tensor, its plain version on a CPU tensor);
+(the Hopper kernel on a CUDA tensor, its plain version on a CPU tensor), and
+the int8 path's packed self-attention through `flash_attention_qkv_packed`;
 masked attention (CLIP's causal mask) stays plain PyTorch, as it stays XLA in
 the JAX package.
 
@@ -21,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cfgpp_tpu_torch.kernels.flash_attention import flash_attention_hd
+from cfgpp_tpu_torch.kernels.flash_attention import (
+    flash_attention_hd, flash_attention_qkv_packed)
+from cfgpp_tpu_torch.models.quant import QuantLinear
 
 
 class Linear(nn.Linear):
@@ -93,7 +96,13 @@ def attention_hd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class Attention(nn.Module):
     """diffusers' `Attention`: to_q/to_k/to_v without bias, to_out with bias.
-    Self-attention when ``context`` is None."""
+    Self-attention when ``context`` is None.
+
+    Quantized (`cfgpp_tpu_torch.weights.quantize`), the projections are
+    `QuantLinear`s and self-attention's to_q/to_k/to_v are one packed
+    ``to_qkv``, as in ``cfgpp_tpu/models/attention.py:_quant_forward``: the
+    block's pre-LayerNorm (``ln``) rides the first projection and its
+    residual add the ``to_out`` projection."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: Optional[int] = None):
@@ -109,18 +118,41 @@ class Attention(nn.Module):
     def kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.to_k(context), self.to_v(context)
 
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.to_out[0], QuantLinear)
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
                 kv_len: Optional[int] = None,
-                cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                ln: Optional[nn.LayerNorm] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``cached_kv``: precomputed (k, v) of a context that is constant
-        across the sampling loop (`unet.precompute_cross_kv`)."""
+        across the sampling loop (`unet.precompute_cross_kv`).  ``ln`` /
+        ``residual``: the fusions of the quantized path."""
+        if self.quantized:
+            if mask is not None:
+                raise ValueError("the quantized attention takes no mask")
+            return self._quant_forward(x, context, kv_len, cached_kv, ln,
+                                       residual)
+        if ln is not None or residual is not None:
+            raise ValueError("ln=/residual= fusion is quant-path only")
         q = self.to_q(x)
         k, v = cached_kv if cached_kv is not None else self.kv(
             x if context is None else context)
         out = attention_hd(q, k, v, self.num_heads, mask=mask, kv_len=kv_len)
         return self.to_out[0](out)
+
+    def _quant_forward(self, x, context, kv_len, cached_kv, ln, residual):
+        if context is None:
+            qkv = self.to_qkv(x, ln=ln)
+            out = flash_attention_qkv_packed(qkv, self.num_heads)
+        else:
+            q = self.to_q(x, ln=ln)
+            k, v = cached_kv if cached_kv is not None else self.kv(context)
+            out = flash_attention_hd(q, k, v, self.num_heads, kv_len=kv_len)
+        return self.to_out[0](out, residual=residual)
 
 
 class CLIPAttention(nn.Module):

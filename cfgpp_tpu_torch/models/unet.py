@@ -1,4 +1,4 @@
-"""UNet2DConditionModel, exact path, SD-1.5 layout; counterpart of
+"""UNet2DConditionModel, SD-1.5 layout; counterpart of
 ``cfgpp_tpu/models/unet.py``.
 
 Module names follow the diffusers state-dict layout.  The public layout is
@@ -10,8 +10,12 @@ Parameters are in the compute dtype (bf16 on the card); norms keep f32
 statistics.
 
 Covered: the conv-projection `Transformer2DModel` of SD-1.5 (and the tiny
-test config).  The linear-projection variant and SDXL's added text/time
-embedding are rejected, not approximated.
+test config), exact and int8 ``mode="dense"``
+(`cfgpp_tpu_torch.weights.quantize` swaps the transformer projections for
+`QuantLinear`/`QuantConv`; the blocks below then take the JAX package's
+quant plumbing: each pre-LayerNorm rides the first int8 matmul of its
+sublayer, each residual the last).  The linear-projection variant and
+SDXL's added text/time embedding are rejected, not approximated.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from cfgpp_tpu.configs import UNetConfig
+from cfgpp_tpu_torch.kernels.int8_matmul import int8_ff_geglu
 from cfgpp_tpu_torch.models.attention import (Attention, Conv2d, GroupNorm,
                                               LayerNorm, Linear)
+from cfgpp_tpu_torch.models.quant import QuantConv, QuantLinear, ln_kwargs
 
 CrossKV = Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]
 
@@ -107,8 +113,18 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
                                   Linear(inner, dim)])
 
-    def forward(self, x):
-        return self.net[2](self.net[0](x))
+    def forward(self, x, ln=None, residual=None):
+        w1, w2 = self.net[0].proj, self.net[2]
+        if isinstance(w2, QuantLinear):
+            # the whole block in one call: pre-LN, GEGLU, requantize of the
+            # f32 hidden state, second dot, residual
+            return int8_ff_geglu(x, w1.weight, w1.weight_scale, w1.bias,
+                                 w2.weight, w2.weight_scale, w2.bias,
+                                 residual=residual, out_dtype=x.dtype,
+                                 **ln_kwargs(ln))
+        if ln is not None or residual is not None:
+            raise ValueError("ln=/residual= fusion is quant-path only")
+        return w2(self.net[0](x))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -122,6 +138,11 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context, kv_len=None, cached_kv=None):
+        if self.attn1.quantized:
+            x = self.attn1(x, ln=self.norm1, residual=x)
+            x = self.attn2(x, context, kv_len=kv_len, cached_kv=cached_kv,
+                           ln=self.norm2, residual=x)
+            return self.ff(x, ln=self.norm3, residual=x)
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context, kv_len=kv_len,
                            cached_kv=cached_kv)
@@ -148,6 +169,8 @@ class Transformer2DModel(nn.Module):
         for i, blk in enumerate(self.transformer_blocks):
             t = blk(t, context, kv_len=kv_len,
                     cached_kv=None if cross_kv is None else cross_kv[i])
+        if isinstance(self.proj_out, QuantConv):
+            return self.proj_out(_image(t, h, w), residual=x)
         return self.proj_out(_image(t, h, w)) + x
 
 

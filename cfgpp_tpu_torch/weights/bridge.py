@@ -11,6 +11,16 @@ names, and tensors back to torch conventions.
   down_blocks_0_attentions_0 -> down_blocks.0.attentions.0
   ff/net_0_proj, to_out      -> ff.net.0.proj, to_out.0
 
+Quantized trees (``cfgpp_tpu``'s ``ModelBundle.quantized(mode).params()``):
+a module whose ``kernel`` is int8 is a W8A8 layer, and its ``scale`` is a
+per-output-channel weight scale, not a norm weight:
+
+  int8 kernel [K,N]          -> int8 weight [N,K]
+  int8 kernel [1,1,I,O]      -> int8 weight [O,I] (1x1 conv)
+  scale [N]                  -> weight_scale [N], f32
+  bias [N]                   -> bias [N], f32
+  attn1/to_qkv               -> attn1.to_qkv
+
 Input trees hold array-likes (numpy or JAX arrays, read through
 ``np.asarray``); nothing here imports JAX.
 """
@@ -57,13 +67,33 @@ def _tensor(kind: str, value) -> Tuple[str, torch.Tensor]:
     raise KeyError(f"unhandled parameter kind {kind!r}")
 
 
+def _int8_tensor(kind: str, value) -> Tuple[str, torch.Tensor]:
+    arr = np.asarray(value)
+    if kind == "kernel":
+        if arr.ndim == 4:
+            if arr.shape[:2] != (1, 1):
+                raise ValueError(f"int8 conv kernel {arr.shape}: only 1x1 "
+                                 "convs are quantized in mode 'dense'")
+            arr = arr[0, 0]
+        return "weight", torch.from_numpy(np.ascontiguousarray(arr.T))
+    if kind == "scale":
+        return "weight_scale", torch.from_numpy(arr.astype(np.float32))
+    if kind == "bias":
+        return "bias", torch.from_numpy(arr.astype(np.float32))
+    raise KeyError(f"unhandled parameter kind {kind!r} of an int8 layer")
+
+
 def diffusers_state_dict(params: Mapping) -> StateDict:
-    """JAX UNet2DConditionModel or AutoencoderKL params -> the diffusers
-    state dict of the same model."""
+    """JAX UNet2DConditionModel (exact or quantized) or AutoencoderKL params
+    -> the diffusers state dict of the same model."""
     tree = params.get("params", params)
+    leaves = list(_leaves(tree))
+    int8_layers = {path[:-1] for path, value in leaves
+                   if path[-1] == "kernel" and np.asarray(value).dtype == np.int8}
     out: StateDict = {}
-    for path, value in _leaves(tree):
-        kind, value = _tensor(path[-1], value)
+    for path, value in leaves:
+        convert = _int8_tensor if path[:-1] in int8_layers else _tensor
+        kind, value = convert(path[-1], value)
         out[".".join([_module_name(p) for p in path[:-1]] + [kind])] = value
     return out
 

@@ -7,16 +7,26 @@
 Phases, one status line each; any failure exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi), then the build of
-   every CUDA kernel of the slice from the sources in this checkout.
+   every CUDA library from the sources in this checkout (one nvcc per
+   source, all started together).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
-   slice gives it (bf16 inputs from a seed; the plain version computes in
-   f32), with the tolerance stated, and both times per call.
-3. slice: SD-1.5 ``ddim_cfg++``, lambda=0.6, 50 NFE, 512^2, random weights
-   from seed 0, bf16, three requests of batch 1 through
+   slices give it (bf16 inputs from a seed), with the tolerance stated, and
+   both times per call: flash_attention_hd, flash_attention_qkv_packed,
+   int8_matmul (every mode the int8 slice uses, and the affine prologue at a
+   level-1 shape) and int8_ff_geglu.
+3. exact slice: SD-1.5 ``ddim_cfg++``, lambda=0.6, 50 NFE, 512^2, random
+   weights from seed 0, bf16, three requests of batch 1 through
    ``DiffusionEngine.sample``.  Checks the images, the kernel launch count
    per request, and one UNet call and one VAE decode against the same
    modules with the plain attention in place of the kernel.
-4. summary: a JSON line of the kernels, then the result line
+4. int8 slice: the same requests with the UNet quantized by the port
+   (``--quant dense``: int8 W8A8 transformer projections).  Checks the
+   images, the launches per request of each of the four kernels, one
+   quantized UNet call against the same modules with every kernel's plain
+   version, the quant-drift gate of ``cfgpp_tpu/cli/parity_check.py``
+   (worst per-step rel-MAE of the int8 trajectory against the exact one
+   from the same zT, < 0.15), and peak device memory.
+5. summary: a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
@@ -29,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -42,6 +53,15 @@ ROOT = Path(__file__).resolve().parent
 # or the plain f32 attention at its 32 (UNet) or 1 (VAE) attention sites.
 KERNEL_REL_TOL = 2e-2     # max |kernel - plain| <= tol * max |plain|
 MODEL_REL_L2_TOL = 3e-2   # ||kernel path - plain path|| <= tol * ||plain path||
+# The int8 UNet at random weights turns any last-bit difference into int8
+# level flips, and its output moves by rel-L2 3.3-3.4e-2 when its input
+# moves by a relative 1e-3 (a quarter of a bf16 ulp; measured on the H100 at
+# t = 101/501/901).  So its kernel path is held to that floor, measured in
+# the same run: no more than NOISE_FLOOR_FACTOR x the rel-L2 that such an
+# input perturbation causes through the plain path (or MODEL_REL_L2_TOL,
+# whichever is larger).
+INPUT_NOISE = 1e-3
+NOISE_FLOOR_FACTOR = 1.25
 
 NFE = 50
 GUIDANCE = 0.6
@@ -51,10 +71,23 @@ PROMPTS = ("a photograph of an astronaut riding a horse",
            "a watercolor painting of a lighthouse at dusk")
 UNET_SITES_PER_CALL = 32      # 16 transformer blocks x (self + cross)
 LAUNCHES_PER_REQUEST = UNET_SITES_PER_CALL * NFE + 1   # + the VAE mid-block
+# The int8 slice, per request (16 transformer blocks, one per transformer):
+# int8_matmul: to_qkv, attn1 to_out, to_q, attn2 to_out, proj_in, proj_out
+# per block and UNet call, + the cross k/v of every block once per request;
+# int8_ff_geglu: one per block; packed: every self-attention; hd: every
+# cross-attention + the VAE mid-block.
+INT8_LAUNCHES_PER_REQUEST = {
+    "int8_matmul": 16 * 6 * NFE + 16 * 2,
+    "int8_ff_geglu": 16 * NFE,
+    "flash_attention_qkv_packed": 16 * NFE,
+    "flash_attention_hd": 16 * NFE + 1,
+}
+QUANT_DRIFT_BUDGET = 0.15     # cfgpp_tpu/cli/parity_check.py --quant_budget
 
 # (site, q shape, kv rows, heads, kv_len, calls per request).  Heads are 8
 # in every SD-1.5 UNet block; 5 transformer blocks per level (2 down, 3 up),
-# 1 in the mid block; one VAE mid-block attention per image.
+# 1 in the mid block; one VAE mid-block attention per image.  The calls are
+# the exact slice's; in the int8 slice the self-attention rows run packed.
 ATTENTION_CASES = [
     ("unet L0 self", (2, 4096, 320), 4096, 8, None, 5 * NFE),
     ("unet L0 cross", (2, 4096, 320), 77, 8, None, 5 * NFE),
@@ -67,6 +100,29 @@ ATTENTION_CASES = [
     ("vae mid self", (1, 4096, 512), 4096, 1, None, 1),
     ("cross kv padded to 128", (2, 4096, 320), 128, 8, 77, 0),
 ]
+# The int8 slice's shapes: (level, tokens per image, channels, transformer
+# blocks); the UNet runs batch 2B = 2.
+LEVELS = [("L0", 4096, 320, 5), ("L1", 1024, 640, 5), ("L2", 256, 1280, 5),
+          ("mid", 64, 1280, 1)]
+# (site, x shape, N, mode, calls per request) for int8_matmul.  Modes: "ln"
+# (fused pre-LayerNorm), "bias_res" (bias + residual), "bias", "none",
+# "affine" (per-(sample, channel) prologue; not on the SD-1.5 path).
+INT8_MATMUL_CASES = [
+    case for lvl, n, c, blocks in LEVELS for case in (
+        (f"{lvl} to_qkv", (2, n, c), 3 * c, "ln", blocks * NFE),
+        (f"{lvl} to_q", (2, n, c), c, "ln", blocks * NFE),
+        (f"{lvl} attn1/attn2 to_out, proj_out", (2, n, c), c, "bias_res",
+         3 * blocks * NFE),
+        (f"{lvl} proj_in", (2, n, c), c, "bias", blocks * NFE))
+] + [(f"{lvl} cross k/v", (2, 77, 768), c, "none", 2 * blocks)
+     for lvl, _, c, blocks in LEVELS] + [
+    ("L1 affine prologue", (2, 1024, 640), 640, "affine", 0)]
+# (site, x shape, calls per request) for int8_ff_geglu: N = 4C, O = C.
+INT8_FF_CASES = [(f"{lvl} ff", (2, n, c), blocks * NFE)
+                 for lvl, n, c, blocks in LEVELS]
+# (site, packed qkv shape, heads, calls per request)
+PACKED_CASES = [(f"unet {lvl} self packed", (2, n, 3 * c), 8, blocks * NFE)
+                for lvl, n, c, blocks in LEVELS]
 
 
 def fail(msg: str) -> None:
@@ -103,35 +159,125 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def phase_kernels(fa, card: str) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, max_err, ms_req, plain_ms_req = [], 0.0, 0.0, 0.0
-    for site, (b, n, c), nkv, heads, kv_len, calls in ATTENTION_CASES:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
-                   for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
-        out = fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len)
+def build_all(build) -> None:
+    """One nvcc per CUDA source, all started together."""
+    names = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        results = list(pool.map(build.build_library, names))
+    for name, res in zip(names, results):
+        usage = [ln.strip() for ln in res.log.splitlines() if "registers" in ln]
+        print(f"  built {res.path.name} in {res.seconds:.2f} s; "
+              f"{'; '.join(usage) or 'already built'}", flush=True)
+    for name in names:
+        build.load_library(name)
+
+
+class KernelTable:
+    """Per-kernel rows of phase 2: error against the plain version and both
+    times per call at each shape."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.rows = {}
+
+    def measure(self, kernel_name, site, desc, kernel, ref, plain, calls):
+        out = kernel()
         torch.cuda.synchronize()
-        ref = fa.flash_attention_hd_reference(q.float(), k.float(), v.float(),
-                                              heads, kv_len=kv_len)
-        err = (out.float() - ref).abs().max().item()
-        scale = ref.abs().max().item()
+        want = ref()
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
         ok = bool(torch.isfinite(out).all()) and err <= KERNEL_REL_TOL * scale
-        ms = time_ms(lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len))
-        plain_ms = time_ms(lambda: fa.flash_attention_hd_reference(
-            q, k, v, heads, kv_len=kv_len))
-        print(f"  {site}: q {list(q.shape)} kv {nkv} heads {heads} d {c // heads}"
-              f" kv_len {kv_len}: max_abs_err {err:.3e} (tol {KERNEL_REL_TOL}"
-              f" x {scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-              f" [{card}]", flush=True)
-        check(ok, f"flash_attention_hd disagrees with its plain version at {site}")
-        max_err = max(max_err, err)
-        ms_req += calls * ms
-        plain_ms_req += calls * plain_ms
-        rows.append({"site": site, "q": [b, n, c], "kv": nkv, "heads": heads,
-                     "kv_len": kv_len, "calls_per_request": calls,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    return {"max_abs_err": max_err, "ms": ms_req, "plain_ms": plain_ms_req,
-            "shapes": rows}
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        print(f"  {kernel_name} {site}: {desc}: max_abs_err {err:.3e} (tol "
+              f"{KERNEL_REL_TOL} x {scale:.3e}) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms [{self.card}]", flush=True)
+        check(ok, f"{kernel_name} disagrees with its plain version at {site}")
+        self.rows.setdefault(kernel_name, []).append(
+            {"site": site, "shape": desc, "calls_per_request": calls,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+
+    def summary(self, kernel_name) -> dict:
+        rows = self.rows[kernel_name]
+        return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": sum(r["calls_per_request"] * r["ms"] for r in rows),
+                "plain_ms": sum(r["calls_per_request"] * r["plain_ms"]
+                                for r in rows),
+                "shapes": rows}
+
+
+def phase_kernels(fa, tk, quantize_kernel_int8, table: KernelTable) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    for site, (b, n, c), nkv, heads, kv_len, calls in ATTENTION_CASES:
+        q, k, v = (randn(*shape).bfloat16()
+                   for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
+        table.measure(
+            "flash_attention_hd", site,
+            f"q {[b, n, c]} kv {nkv} heads {heads} d {c // heads} kv_len {kv_len}",
+            lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len),
+            lambda: fa.flash_attention_hd_reference(
+                q.float(), k.float(), v.float(), heads, kv_len=kv_len),
+            lambda: fa.flash_attention_hd_reference(q, k, v, heads,
+                                                    kv_len=kv_len), calls)
+
+    for site, shape, heads, calls in PACKED_CASES:
+        qkv = randn(*shape).bfloat16()
+        table.measure(
+            "flash_attention_qkv_packed", site,
+            f"qkv {list(shape)} heads {heads} d {shape[2] // 3 // heads}",
+            lambda: fa.flash_attention_qkv_packed(qkv, heads),
+            lambda: fa.flash_attention_qkv_packed_reference(qkv.float(), heads),
+            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), calls)
+
+    def weights(k, n):
+        wq, ws = quantize_kernel_int8(randn(n, k, scale=k ** -0.5))
+        return wq, ws, randn(n, scale=0.1)
+
+    for site, (b, t, k), n, mode, calls in INT8_MATMUL_CASES:
+        x = randn(b, t, k).bfloat16()
+        wq, ws, bias = weights(k, n)
+        kw = {}
+        if mode == "ln":
+            kw = dict(ln_scale=1.0 + randn(k, scale=0.1),
+                      ln_bias=randn(k, scale=0.1))
+        elif mode in ("bias_res", "bias"):
+            kw["bias"] = bias
+            if mode == "bias_res":
+                kw["residual"] = randn(b, t, n).bfloat16()
+        elif mode == "affine":
+            kw = dict(affine_scale=randn(b, k), affine_bias=randn(b, k),
+                      bias=bias)
+        table.measure(
+            "int8_matmul", site, f"x {[b, t, k]} N {n} {mode}",
+            lambda: tk.int8_matmul(x, wq, ws, **kw),
+            lambda: tk.int8_matmul_reference(x, wq, ws, **kw),
+            lambda: tk.int8_matmul_reference(x, wq, ws, **kw), calls)
+
+    for site, (b, t, c), calls in INT8_FF_CASES:
+        x = randn(b, t, c).bfloat16()
+        w1q, w1s, b1 = weights(c, 8 * c)
+        w2q, w2s, b2 = weights(4 * c, c)
+        kw = dict(ln_scale=1.0 + randn(c, scale=0.1),
+                  ln_bias=randn(c, scale=0.1),
+                  residual=randn(b, t, c).bfloat16())
+        args = (x, w1q, w1s, b1, w2q, w2s, b2)
+        table.measure(
+            "int8_ff_geglu", site, f"x {[b, t, c]} N {4 * c} O {c} ln res",
+            lambda: tk.int8_ff_geglu(*args, **kw),
+            lambda: tk.int8_ff_geglu_reference(*args, **kw),
+            lambda: tk.int8_ff_geglu_reference(*args, **kw), calls)
+
+
+def unet_inputs(engine):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    s = RESOLUTION // engine.bundle.vae_scale_factor
+    z = torch.randn((2, s, s, 4), generator=gen, device="cuda")
+    ctx = engine._text_embed_sd(engine.tokenize(["", PROMPTS[0]]))
+    return z, ctx, torch.tensor(501, device="cuda")
 
 
 def phase_models_vs_plain_attention(engine, fa) -> None:
@@ -140,12 +286,8 @@ def phase_models_vs_plain_attention(engine, fa) -> None:
     from cfgpp_tpu_torch.models import attention
     from cfgpp_tpu_torch.models.unet import precompute_cross_kv
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     unet, vae = engine.bundle.unet, engine.bundle.vae
-    s = RESOLUTION // engine.bundle.vae_scale_factor
-    z = torch.randn((2, s, s, 4), generator=gen, device="cuda")
-    ctx = engine._text_embed_sd(engine.tokenize(["", PROMPTS[0]]))
-    t = torch.tensor(501, device="cuda")
+    z, ctx, t = unet_inputs(engine)
 
     def run():
         with torch.inference_mode():
@@ -165,39 +307,141 @@ def phase_models_vs_plain_attention(engine, fa) -> None:
         check(err <= MODEL_REL_L2_TOL, f"{what}: kernel path disagrees")
 
 
-def phase_slice(engine, fa, card: str) -> int:
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
+def phase_int8_unet_vs_plain(engine_q, fa, tk) -> None:
+    """One quantized UNet call with the kernels against the same modules with
+    every kernel's plain version in its place, held to the plain path's own
+    sensitivity to a sub-ulp input perturbation."""
+    from cfgpp_tpu_torch.models import attention, quant
+    from cfgpp_tpu_torch.models import unet as unet_mod
+
+    unet = engine_q.bundle.unet
+    z, ctx, t = unet_inputs(engine_q)
+
+    def run(sample):
+        with torch.inference_mode():
+            return unet(sample, t, ctx,
+                        cross_kv=unet_mod.precompute_cross_kv(unet, ctx))
+
+    eps_k = run(z)
+    noise = torch.randn(z.shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+    with mock.patch.object(quant, "int8_matmul", tk.int8_matmul_reference), \
+            mock.patch.object(unet_mod, "int8_ff_geglu",
+                              tk.int8_ff_geglu_reference), \
+            mock.patch.object(attention, "flash_attention_qkv_packed",
+                              fa.flash_attention_qkv_packed_reference), \
+            mock.patch.object(attention, "flash_attention_hd",
+                              fa.flash_attention_hd_reference):
+        eps_p = run(z)
+        eps_noisy = run(z * (1.0 + INPUT_NOISE * noise))
+    err = rel_l2(eps_k, eps_p)
+    floor = rel_l2(eps_noisy, eps_p)
+    tol = max(MODEL_REL_L2_TOL, NOISE_FLOOR_FACTOR * floor)
+    print(f"  int8 unet eps: kernels vs plain versions rel_l2 {err:.3e}"
+          f" (tol {tol:.3e}: {NOISE_FLOOR_FACTOR} x the plain path's rel_l2"
+          f" {floor:.3e} under {INPUT_NOISE} relative input noise)", flush=True)
+    check(bool(torch.isfinite(eps_k).all()), "int8 unet eps: non-finite output")
+    check(err <= tol, "int8 unet eps: kernel path disagrees")
+
+
+def run_requests(engine, counters, card: str, label: str):
+    """Three requests of batch 1; returns the launches of each counter per
+    request.  ``counters``: {kernel name: () -> current count}."""
     images, seconds, counts = [], [], []
     for prompt in (PROMPTS[0], PROMPTS[1], PROMPTS[0]):
-        before = fa.launches
+        before = {name: read() for name, read in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = engine.sample(["", prompt], cfg_guidance=GUIDANCE, seed=SEED,
                             resolution=RESOLUTION)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        counts.append(fa.launches - before)
+        counts.append({name: read() - before[name]
+                       for name, read in counters.items()})
         check(img.dtype == torch.float32
               and tuple(img.shape) == (1, RESOLUTION, RESOLUTION, 3),
-              f"image {tuple(img.shape)} {img.dtype}")
-        check(bool(torch.isfinite(img).all()), "non-finite image")
+              f"{label}: image {tuple(img.shape)} {img.dtype}")
+        check(bool(torch.isfinite(img).all()), f"{label}: non-finite image")
         check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
-              "image outside [0, 1]")
+              f"{label}: image outside [0, 1]")
         images.append(engine._to_uint8(img).int())
-    total = fa.launches
     for i, (sec, n) in enumerate(zip(seconds, counts), 1):
-        print(f"  request {i}: {sec:.3f} s/image, {n} flash_attention_hd"
-              f" launches [{card}]", flush=True)
-    check(all(n == LAUNCHES_PER_REQUEST for n in counts),
-          f"launches per request {counts}, expected {LAUNCHES_PER_REQUEST}")
-    check(bool((images[0] != images[1]).any()), "images 1 and 2 are identical")
+        print(f"  {label} request {i}: {sec:.3f} s/image, launches {n}"
+              f" [{card}]", flush=True)
+    check(bool((images[0] != images[1]).any()),
+          f"{label}: images 1 and 2 are identical")
     diff = (images[2] - images[0]).abs().max().item()
-    check(diff <= 1, f"image 3 differs from image 1 by {diff} uint8 levels")
-    print(f"  images 1/2 differ; image 3 within {diff} level(s) of image 1;"
-          f" peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB", flush=True)
-    return total
+    check(diff <= 1, f"{label}: image 3 differs from image 1 by {diff} levels")
+    print(f"  {label}: images 1/2 differ; image 3 within {diff} level(s) of"
+          f" image 1; peak device memory"
+          f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return counts
+
+
+def counters(fa, tk):
+    return {"flash_attention_hd": lambda: fa.launches,
+            "flash_attention_qkv_packed": lambda: fa.packed_launches,
+            "int8_matmul": lambda: tk.matmul_launches,
+            "int8_ff_geglu": lambda: tk.ff_launches}
+
+
+def reset_counts(fa, tk) -> None:
+    fa.reset_launches()
+    tk.reset_launches()
+
+
+def phase_slice(engine, fa, tk, card: str) -> int:
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, tk)
+    counts = run_requests(engine, counters(fa, tk), card, "exact")
+    expected = {"flash_attention_hd": LAUNCHES_PER_REQUEST,
+                "flash_attention_qkv_packed": 0, "int8_matmul": 0,
+                "int8_ff_geglu": 0}
+    check(all(n == expected for n in counts),
+          f"exact: launches per request {counts}, expected {expected}")
+    return fa.launches
+
+
+def phase_int8_slice(engine_q, fa, tk, card: str) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, tk)
+    counts = run_requests(engine_q, counters(fa, tk), card, "int8")
+    check(all(n == INT8_LAUNCHES_PER_REQUEST for n in counts),
+          f"int8: launches per request {counts}, expected "
+          f"{INT8_LAUNCHES_PER_REQUEST}")
+    return {name: read() for name, read in counters(fa, tk).items()}
+
+
+def phase_quant_drift(engine, engine_q) -> float:
+    """``cfgpp_tpu/cli/parity_check.py:run_quant_drift``: per-step MAE of the
+    int8 trajectory against the exact one from the same zT, each normalized
+    by the exact step's mean magnitude; the worst must stay under 0.15."""
+    kw = dict(cfg_guidance=GUIDANCE, seed=SEED, resolution=RESOLUTION,
+              return_trajectory=True)
+    _, (z0_e, zt_e) = engine.sample(["", PROMPTS[0]], **kw)
+    _, (z0_q, zt_q) = engine_q.sample(["", PROMPTS[0]], **kw)
+    worst, worst_step = 0.0, -1
+    for i in range(z0_e.shape[0]):
+        for q, e in ((z0_q[i], z0_e[i]), (zt_q[i], zt_e[i])):
+            rel = ((q - e).abs().mean() / e.abs().mean().clamp_min(1e-6)).item()
+            if rel > worst:
+                worst, worst_step = rel, i
+    print(f"  quant drift: worst per-step rel-MAE {worst:.4f} at step"
+          f" {worst_step} (budget {QUANT_DRIFT_BUDGET})", flush=True)
+    check(worst < QUANT_DRIFT_BUDGET, f"quant drift {worst} over budget")
+    return worst
+
+
+KERNEL_SOURCES = {
+    "flash_attention_hd": ("cfgpp_tpu_torch/csrc/flash_attention.cu",
+                           "cfgpp_tpu/kernels/flash_attention.py:378"),
+    "flash_attention_qkv_packed": ("cfgpp_tpu_torch/csrc/flash_attention.cu",
+                                   "cfgpp_tpu/kernels/flash_attention.py:614"),
+    "int8_matmul": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
+                    "cfgpp_tpu/kernels/int8_matmul.py:163"),
+    "int8_ff_geglu": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
+                      "cfgpp_tpu/kernels/int8_matmul.py:305"),
+}
 
 
 def main() -> None:
@@ -213,6 +457,8 @@ def main() -> None:
     from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
     from cfgpp_tpu_torch.kernels import build
     from cfgpp_tpu_torch.kernels import flash_attention as fa
+    from cfgpp_tpu_torch.kernels import int8_matmul as tk
+    from cfgpp_tpu_torch.models.quant import quantize_kernel_int8
 
     # the plain versions are f32 references: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -222,14 +468,14 @@ def main() -> None:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    res = build.build_library("flash_attention")
-    usage = [ln.strip() for ln in res.log.splitlines() if "registers" in ln]
-    print(f"phase 1 ok: built {res.path.name} in {res.seconds:.2f} s; "
-          f"{'; '.join(usage) or 'already built'}", flush=True)
+    build_all(build)
+    print("phase 1 ok: every CUDA library built and loaded", flush=True)
 
-    kernel = phase_kernels(fa, card)
-    print(f"phase 2 ok: flash_attention_hd matches its plain version at"
-          f" {len(ATTENTION_CASES)} shapes", flush=True)
+    table = KernelTable(card)
+    phase_kernels(fa, tk, quantize_kernel_int8, table)
+    print(f"phase 2 ok: {len(KERNEL_SOURCES)} kernels match their plain"
+          f" versions at {sum(map(len, table.rows.values()))} shapes",
+          flush=True)
 
     t0 = time.perf_counter()
     bundle = ModelBundle.random_init("sd15", seed=0, dtype=torch.bfloat16,
@@ -239,18 +485,32 @@ def main() -> None:
     print(f"  random sd15 bundle on the card in {time.perf_counter() - t0:.2f} s",
           flush=True)
     phase_models_vs_plain_attention(engine, fa)
-    launches = phase_slice(engine, fa, card)
-    print("phase 3 ok: SD-1.5 ddim_cfg++ slice, 3 requests", flush=True)
+    exact_hd = phase_slice(engine, fa, tk, card)
+    print("phase 3 ok: SD-1.5 ddim_cfg++ exact slice, 3 requests", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_hd", "route": "cuda",
-        "source": "cfgpp_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "cfgpp_tpu/kernels/flash_attention.py:378",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
-        "ms_per": "request: sum over the slice's attention calls of calls x"
-                  " time per call",
-        "shapes": kernel["shapes"]}]}), flush=True)
+    engine_q = DiffusionEngine(bundle.quantized("dense"), "ddim_cfg++", nfe=NFE)
+    phase_int8_unet_vs_plain(engine_q, fa, tk)
+    int8_counts = phase_int8_slice(engine_q, fa, tk, card)
+    drift = phase_quant_drift(engine, engine_q)
+    print("phase 4 ok: SD-1.5 ddim_cfg++ int8 (--quant dense) slice, 3 requests",
+          flush=True)
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        summary = table.summary(name)
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": exact_hd if name == "flash_attention_hd"
+                 else int8_counts[name],
+                 "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
+                 "plain_ms": summary["plain_ms"],
+                 "ms_per": "request: sum over the slice's calls of calls x"
+                           " time per call"}
+        if name == "flash_attention_hd":
+            entry["launches_int8_slice"] = int8_counts[name]
+        entry["shapes"] = summary["shapes"]
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels, "quant_drift": drift}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -113,13 +113,38 @@ def test_wrapper_rejects_other_devices_and_bad_shapes():
         fa.flash_attention_hd(q, k, v, 3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_wrapper_on_cpu_uses_reference_without_launch(dtype):
+    """The packed entry point's plain version is `flash_attention_hd_reference`
+    on the three channel thirds."""
+    b, n, h, d = 2, 37, 8, 40
+    qkv = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, n, 3 * h * d), np.float32)).to(dtype)
+    fa.reset_launches()
+    out = fa.flash_attention_qkv_packed(qkv, h)
+    q, k, v = qkv.split(h * d, dim=2)
+    assert out.dtype == dtype and out.shape == (b, n, h * d)
+    assert torch.equal(out, fa.flash_attention_hd_reference(q, k, v, h))
+    assert fa.launches == fa.packed_launches == 0
+
+
+def test_packed_wrapper_rejects_other_devices_and_bad_shapes():
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_qkv_packed(torch.empty(1, 8, 96, device="meta"), 2)
+    with pytest.raises(ValueError, match="packed"):
+        fa.flash_attention_qkv_packed(torch.zeros(1, 8, 100), 2)
+
+
 def test_import_needs_no_compiler_or_gpu():
     """Importing the wrapper builds nothing: nvcc and the card are needed
     only at the first launch on a CUDA tensor."""
     code = ("import sys, cfgpp_tpu_torch.kernels.flash_attention as fa\n"
             "assert 'cfgpp_tpu_torch.kernels.build' not in sys.modules\n"
             "assert 'triton' not in sys.modules\n"
-            "assert fa.launches == 0\n")
+            "assert fa.launches == fa.packed_launches == 0\n"
+            "import cfgpp_tpu_torch.kernels.int8_matmul as q\n"
+            "assert q.matmul_launches == q.ff_launches == 0\n"
+            "assert 'cfgpp_tpu_torch.kernels.build' not in sys.modules\n")
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=Path(__file__).parents[1])

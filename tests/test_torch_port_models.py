@@ -97,6 +97,24 @@ def test_cross_kv_sites_match_jax(bundles):
             _assert_close(gv, wv, site)
 
 
+def test_quantized_cross_kv_sites_match_jax(bundles):
+    """precompute_cross_kv of the int8 UNet against the JAX package's CPU
+    route (quant_dense_apply, W8A8 in f32 like the port's plain version)."""
+    from cfgpp_tpu.weights.quantize import quantize_unet_params
+
+    jb, tb = bundles
+    ctx = np.random.default_rng(12).standard_normal((2, 77, 32), np.float32)
+    want = jax_cross_kv(quantize_unet_params(jb.unet_params, mode="dense"),
+                        jb.config.unet, jnp.asarray(ctx), quant="dense",
+                        dtype=jnp.float32)
+    got = precompute_cross_kv(tb.quantized().unet, torch.from_numpy(ctx))
+    assert sorted(got) == sorted(want)
+    for site in want:
+        for (gk, gv), (wk, wv) in zip(got[site], want[site]):
+            _assert_close(gk, wk, site)
+            _assert_close(gv, wv, site)
+
+
 def test_vae_decode(bundles):
     jb, tb = bundles
     z = np.random.default_rng(6).standard_normal((1, 8, 8, 4), np.float32)
