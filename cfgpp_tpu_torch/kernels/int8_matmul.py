@@ -16,6 +16,13 @@ round half to even, clip to +-127; int32 accumulation; rank-1 dequant;
 f32 bias and residual before the one rounding to ``out_dtype``).  Weights
 are in torch layout: ``w_q`` int8 [N, K], one f32 scale per output row.
 
+`int8_matmul_stages` and `int8_ff_geglu_stages` launch the same kernels
+and also return what the kernel computed on the way (the quantized rows;
+the feed-forward's f32 hidden state and its requantized rows), so that a
+check can hold each stage against its plain counterpart
+(`prologue_reference`, `quantize_rows`, `geglu_hidden_reference`,
+`dequant_reference`).
+
 ``matmul_launches`` and ``ff_launches`` count the kernel launches of this
 process (`reset_launches` sets them to 0).
 """
@@ -66,15 +73,52 @@ def _int_dot(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ w_q.double().t()).float()
 
 
-def _prologue(x2, ln_scale, ln_bias, ln_eps, affine_scale, affine_bias):
+def prologue_reference(x: torch.Tensor,
+                       ln_scale: Optional[torch.Tensor] = None,
+                       ln_bias: Optional[torch.Tensor] = None,
+                       ln_eps: float = 1e-5,
+                       affine_scale: Optional[torch.Tensor] = None,
+                       affine_bias: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """x [..., K] as the kernels see it before the quantize, in f32: the
+    fused LayerNorm, the per-(sample, channel) affine, or x itself."""
     if ln_scale is not None:
-        return layernorm_ref(x2, ln_scale, ln_bias, ln_eps)
-    xf = x2.float()
+        return layernorm_ref(x, ln_scale, ln_bias, ln_eps)
+    xf = x.float()
     if affine_scale is not None:
         b = affine_scale.shape[0]
         xf = (xf.reshape(b, -1, xf.shape[-1]) * affine_scale.float()[:, None]
               + affine_bias.float()[:, None]).reshape(xf.shape)
     return xf
+
+
+def dequant_reference(xq: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
+                      w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernels' GEMM and epilogue from quantized rows, in f32: xq
+    [..., K] int8 values (int8 or f32), sx [..., 1] row scales; exact int
+    dot with w_q [N, K], ``acc * sx * w_scale``, + bias, + residual."""
+    y = _int_dot(xq, w_q) * sx * w_scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    return y
+
+
+def _gelu_erf(g: torch.Tensor) -> torch.Tensor:
+    return g * 0.5 * (1.0 + torch.erf(g * 2.0 ** -0.5))
+
+
+def geglu_hidden_reference(xq: torch.Tensor, sx: torch.Tensor,
+                           w1_q: torch.Tensor, w1_scale: torch.Tensor,
+                           bias1: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 hidden state of `int8_ff_geglu` from quantized rows:
+    ``v * gelu_erf(g)`` with ``v | g`` the dequantized ``x @ W1 + b1``."""
+    h = dequant_reference(xq, sx, w1_q, w1_scale, bias1)
+    n = w1_q.shape[0] // 2
+    return h[..., :n] * _gelu_erf(h[..., n:])
 
 
 def _check_args(x, w_q, w_scale, ln_scale, affine_scale, affine_bias):
@@ -107,18 +151,10 @@ def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
                           ) -> torch.Tensor:
     """Plain PyTorch version of `int8_matmul`."""
     _check_args(x, w_q, w_scale, ln_scale, affine_scale, affine_bias)
-    xf = _prologue(x, ln_scale, ln_bias, ln_eps, affine_scale, affine_bias)
-    xq, sx = quantize_rows(xf)
-    y = _int_dot(xq, w_q) * sx * w_scale.float()
-    if bias is not None:
-        y = y + bias.float()
-    if residual is not None:
-        y = y + residual.float()
-    return y.to(out_dtype)
-
-
-def _gelu_erf(g: torch.Tensor) -> torch.Tensor:
-    return g * 0.5 * (1.0 + torch.erf(g * 2.0 ** -0.5))
+    xq, sx = quantize_rows(prologue_reference(
+        x, ln_scale, ln_bias, ln_eps, affine_scale, affine_bias))
+    return dequant_reference(xq, sx, w_q, w_scale, bias,
+                             residual).to(out_dtype)
 
 
 def int8_ff_geglu_reference(x: torch.Tensor, w1_q: torch.Tensor,
@@ -135,20 +171,11 @@ def int8_ff_geglu_reference(x: torch.Tensor, w1_q: torch.Tensor,
     """Plain PyTorch version of `int8_ff_geglu`: the hidden state is
     requantized per row from f32."""
     _check_ff_args(x, w1_q, w1_scale, w2_q, w2_scale)
-    n = w2_q.shape[1]
-    xf = _prologue(x, ln_scale, ln_bias, ln_eps, None, None)
-    xq, sx = quantize_rows(xf)
-    h = _int_dot(xq, w1_q) * sx * w1_scale.float()
-    if bias1 is not None:
-        h = h + bias1.float()
-    h = h[..., :n] * _gelu_erf(h[..., n:])
-    hq, sh = quantize_rows(h)
-    y = _int_dot(hq, w2_q) * sh * w2_scale.float()
-    if bias2 is not None:
-        y = y + bias2.float()
-    if residual is not None:
-        y = y + residual.float()
-    return y.to(out_dtype)
+    xq, sx = quantize_rows(prologue_reference(x, ln_scale, ln_bias, ln_eps))
+    hq, sh = quantize_rows(geglu_hidden_reference(xq, sx, w1_q, w1_scale,
+                                                  bias1))
+    return dequant_reference(hq, sh, w2_q, w2_scale, bias2,
+                             residual).to(out_dtype)
 
 
 def _check_ff_args(x, w1_q, w1_scale, w2_q, w2_scale):
@@ -252,6 +279,25 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         return int8_matmul_reference(x, w_q, w_scale, bias, ln_scale, ln_bias,
                                      ln_eps, affine_scale, affine_bias,
                                      residual, out_dtype)
+    return int8_matmul_stages(x, w_q, w_scale, bias, ln_scale, ln_bias, ln_eps,
+                              affine_scale, affine_bias, residual,
+                              out_dtype)[0]
+
+
+def int8_matmul_stages(x: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None,
+                       ln_scale: Optional[torch.Tensor] = None,
+                       ln_bias: Optional[torch.Tensor] = None,
+                       ln_eps: float = 1e-5,
+                       affine_scale: Optional[torch.Tensor] = None,
+                       affine_bias: Optional[torch.Tensor] = None,
+                       residual: Optional[torch.Tensor] = None,
+                       out_dtype: torch.dtype = torch.bfloat16):
+    """Launch the `int8_matmul` kernel on CUDA tensors and return ``(out,
+    xq, sx)``: the output and the quantized rows the kernel computed (int8
+    [..., K] and f32 [..., 1]), which checks hold against `quantize_rows`."""
+    _check_args(x, w_q, w_scale, ln_scale, affine_scale, affine_bias)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: no kernel for {x.device}")
     dev, x2, mode, g, b, per = _kernel_args(
@@ -275,7 +321,9 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     _raise_on(err, "int8_matmul", f"x {tuple(x.shape)}, w {tuple(w_q.shape)}")
     global matmul_launches
     matmul_launches += 1
-    return out.reshape(*x.shape[:-1], n)
+    lead = x.shape[:-1]
+    return (out.reshape(*lead, n), xq.reshape(*lead, k),
+            sx.reshape(*lead, 1))
 
 
 def int8_ff_geglu(x: torch.Tensor, w1_q: torch.Tensor, w1_scale: torch.Tensor,
@@ -295,6 +343,24 @@ def int8_ff_geglu(x: torch.Tensor, w1_q: torch.Tensor, w1_scale: torch.Tensor,
         return int8_ff_geglu_reference(x, w1_q, w1_scale, bias1, w2_q,
                                        w2_scale, bias2, ln_scale, ln_bias,
                                        ln_eps, residual, out_dtype)
+    return int8_ff_geglu_stages(x, w1_q, w1_scale, bias1, w2_q, w2_scale,
+                                bias2, ln_scale, ln_bias, ln_eps, residual,
+                                out_dtype)[0]
+
+
+def int8_ff_geglu_stages(x: torch.Tensor, w1_q: torch.Tensor,
+                         w1_scale: torch.Tensor,
+                         bias1: Optional[torch.Tensor], w2_q: torch.Tensor,
+                         w2_scale: torch.Tensor, bias2: Optional[torch.Tensor],
+                         ln_scale: Optional[torch.Tensor] = None,
+                         ln_bias: Optional[torch.Tensor] = None,
+                         ln_eps: float = 1e-5,
+                         residual: Optional[torch.Tensor] = None,
+                         out_dtype: torch.dtype = torch.bfloat16):
+    """Launch the `int8_ff_geglu` kernel on CUDA tensors and return ``(out,
+    xq, sx, h, hq, sh)``: the output, the quantized input rows, the f32
+    hidden state [..., N] and its requantized rows, for checks."""
+    _check_ff_args(x, w1_q, w1_scale, w2_q, w2_scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_ff_geglu: no kernel for {x.device}")
     dev, x2, mode, g, b, _ = _kernel_args(
@@ -330,4 +396,6 @@ def int8_ff_geglu(x: torch.Tensor, w1_q: torch.Tensor, w1_scale: torch.Tensor,
               f"{tuple(w1_q.shape)}, w2 {tuple(w2_q.shape)}")
     global ff_launches
     ff_launches += 1
-    return out.reshape(*x.shape[:-1], o)
+    lead = x.shape[:-1]
+    return (out.reshape(*lead, o), xq.reshape(*lead, k), sx.reshape(*lead, 1),
+            h.reshape(*lead, n), hq.reshape(*lead, n), sh.reshape(*lead, 1))

@@ -197,6 +197,24 @@ def test_wrappers_on_cpu_use_reference_without_launch():
     assert tk.matmul_launches == tk.ff_launches == 0
 
 
+@pytest.mark.parametrize("launcher", ["int8_matmul_stages",
+                                      "int8_ff_geglu_stages"])
+def test_stage_launchers_have_no_plain_route(launcher):
+    """The stage launchers exist to check the kernels; on a CPU tensor they
+    raise instead of computing the plain version, and count nothing."""
+    rng = np.random.default_rng(13)
+    x = T(rng.standard_normal((4, 64)).astype(np.float32)).bfloat16()
+    wq, ws = _weights(rng, 64, 128)
+    w2q, w2s = _weights(rng, 64, 64)
+    args = {"int8_matmul_stages": (x, T(wq.T), T(ws)),
+            "int8_ff_geglu_stages": (x, T(wq.T), T(ws), None, T(w2q.T),
+                                     T(w2s), None)}[launcher]
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="no kernel for cpu"):
+        getattr(tk, launcher)(*args)
+    assert tk.matmul_launches == tk.ff_launches == 0
+
+
 def test_wrappers_reject_other_devices_and_bad_shapes():
     meta = torch.empty(4, 64, device="meta")
     w = torch.zeros(32, 64, dtype=torch.int8)
