@@ -37,11 +37,13 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
                         help="float32 runs only on the CPU: the attention "
                              "kernel takes bf16")
     parser.add_argument("--quant", type=str, default=None,
-                        choices=("dense",),
+                        choices=("dense", "all"),
                         help="opt-in int8 W8A8 UNet (numerics differ from "
                              "the exact bf16 path): 'dense' quantizes the "
                              "transformer projections through the fused "
-                             "int8 matmul kernels; convs stay bf16")
+                             "int8 matmul kernels; 'all' also the resnet "
+                             "and upsampler convs (int8_conv3x3) and the "
+                             "self-attention score")
 
 
 def build_engine(args) -> DiffusionEngine:

@@ -12,9 +12,9 @@ parameters live in the `nn.Module`s.  Dtype policy, as in the JAX bundle:
 Bundles come from `random_init` (seeded random weights; benchmarks and the
 chip smoke run) or `from_flax` (the JAX package's parameter trees, through
 `cfgpp_tpu_torch.weights.bridge`; the parity tests).  `quantized` gives the
-opt-in int8 W8A8 UNet (`cfgpp_tpu_torch.weights.quantize`): its int8
-weights, scales and biases are made after the dtype cast, so scales and
-biases stay f32 as in the JAX tree.
+opt-in int8 W8A8 UNet (`cfgpp_tpu_torch.weights.quantize`, modes "dense" and
+"all"): its int8 weights, scales and biases are made after the dtype cast,
+so scales and biases stay f32 as in the JAX tree.
 """
 
 from __future__ import annotations
@@ -158,6 +158,8 @@ class ModelBundle:
     def quantized(self, mode: str = "dense") -> "ModelBundle":
         """A bundle whose UNet is an int8 W8A8 copy of this one's
         (``cfgpp_tpu/engine/bundle.py:quantized``); this bundle keeps its
-        exact UNet.  Only ``mode="dense"`` is ported."""
+        exact UNet.  ``mode="dense"``: the transformer projections;
+        ``mode="all"``: also the resnet and upsampler convs and the
+        self-attention score."""
         unet = quantize_unet_(copy.deepcopy(self.unet), mode)
         return dataclasses.replace(self, unet=unet)

@@ -9,9 +9,19 @@ see `cfgpp_tpu_torch.kernels.build`); on a CPU tensor they compute
 the plain PyTorch versions of the same functions.  There is no fallback
 from the kernel: a tensor it does not take raises.
 
-``launches`` and ``packed_launches`` count the kernel launches of this
-process, so a run can show that its attention went through the kernel
-(`reset_launches` sets both to 0).
+`flash_attention_hd_int8` and `flash_attention_qkv_packed_int8` are the
+int8-score counterparts (the score dot in int8, per-row q scales and one
+scalar k scale per (batch, head); p@v in bf16), with the hand-written
+kernel in ``cfgpp_tpu_torch/csrc/flash_attention_int8.cu`` and the plain
+versions `flash_attention_hd_int8_reference` /
+`flash_attention_qkv_packed_int8_reference`.  `int8_score_applies` says
+where the quantized UNet's self-attention takes them: exactly where the
+JAX package's TPU route runs ``_kernel_single_int8``.
+
+``launches``, ``packed_launches``, ``int8_launches`` and
+``packed_int8_launches`` count the kernel launches of this process, so a run
+can show that its attention went through the kernels (`reset_launches` sets
+them to 0).
 """
 
 from __future__ import annotations
@@ -23,14 +33,18 @@ from typing import Optional
 import torch
 
 HEAD_DIMS = (40, 64, 80, 160, 512)   # the kernel's instantiations (csrc)
+INT8_HEAD_DIMS = (40, 64, 80, 160)   # the int8-score kernel's
+LOG2E = 1.4426950408889634
 
 launches = 0
 packed_launches = 0
+int8_launches = 0
+packed_int8_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, packed_launches
-    launches = packed_launches = 0
+    global launches, packed_launches, int8_launches, packed_int8_launches
+    launches = packed_launches = int8_launches = packed_int8_launches = 0
 
 
 def _check_shapes(q, k, v, num_heads: int, kv_len: Optional[int]) -> int:
@@ -166,3 +180,236 @@ def flash_attention_qkv_packed(qkv: torch.Tensor,
     global packed_launches
     packed_launches += 1
     return out
+
+
+# ------------------------------------------------------------ int8-score path
+# Where the int8 score applies is a TPU tuning choice of the JAX package, but
+# it decides which numbers the quantized model computes, so the port follows
+# it exactly.  The helpers below are copies of the JAX route's pieces
+# (``cfgpp_tpu/models/attention.py`` and ``cfgpp_tpu/kernels/
+# flash_attention.py``); they decide numerics here, not a tiling.
+FLASH_MIN_Q_LEN = 1024               # models/attention.py: flash from here on
+_VMEM_BUDGET = 13 * 1024 * 1024      # kernels/flash_attention.py block picker
+
+
+def _heads_per_block(num_heads: int, d: int) -> int:
+    """``heads_per_block``: heads per TPU grid step (a 128-lane rule)."""
+    if d % 128 == 0:
+        return 1
+    if 128 % d == 0:
+        hpb = 128 // d
+        if num_heads % hpb == 0:
+            return hpb
+    return num_heads
+
+
+def _packed_views_legal(num_heads: int, d: int) -> bool:
+    """``packed_views_legal``: whether the TPU reads the pack in place; if
+    not, it splits the pack and runs ``flash_attention_hd_int8``, which has
+    no ``n % 128`` condition."""
+    return (_heads_per_block(num_heads, d) * d) % 128 == 0
+
+
+def _single_pass_fits(nq: int, nkv_pad: int, d: int, hpb: int) -> bool:
+    """The single-pass test of ``_pick_blocks``: the int8 score exists only
+    in the one-kv-block kernel, which needs the whole sequence in one VMEM
+    block."""
+    ld = hpb * d
+
+    def vmem(bq, bkv):
+        blocks = (bq * ld + 2 * bkv * ld + bq * ld) * 2 * 2
+        acc = bq * ld * 4 + bq * 8 * hpb * 8
+        aug = 2 * bkv * 2 * d * 2 if (d == 64 and hpb == 2) else 0
+        return blocks + bq * bkv * 4 + acc + aug
+
+    if nkv_pad > 4096:
+        return False
+    bq = min(nq, 1024)
+    while bq > 256 and vmem(bq, nkv_pad) > _VMEM_BUDGET:
+        bq //= 2
+    return vmem(bq, nkv_pad) <= _VMEM_BUDGET
+
+
+def int8_score_applies(n: int, num_heads: int, d: int) -> bool:
+    """True exactly where the JAX package's TPU route runs the quantized
+    UNet's self-attention (n tokens, ``num_heads`` heads of dim d) through
+    ``_kernel_single_int8``: the flash path (n >= `FLASH_MIN_Q_LEN`, d a
+    multiple of 8), one kv block, and on the in-place packed route
+    ``n % 128 == 0``.  Elsewhere it runs the bf16 kernel."""
+    if n < FLASH_MIN_Q_LEN or d % 8:
+        return False
+    if not _single_pass_fits(n, -(-n // 128) * 128, d,
+                             _heads_per_block(num_heads, d)):
+        return False
+    return not _packed_views_legal(num_heads, d) or n % 128 == 0
+
+
+def quantize_qk_reference(q: torch.Tensor, k: torch.Tensor, num_heads: int):
+    """q [B, Nq, H*D], k [B, Nkv, H*D] -> (qq, sq, kq, sk): int8-valued f32
+    q and k in their input layouts, the per-(row, head) q scales [B, Nq, H]
+    and the per-(batch, head) k scales [B, H], taken over every kv row.
+    ``x * (1/s)``, not ``x / s``, as the kernels quantize."""
+    b, nq, hd = q.shape
+    nkv, d = k.shape[1], hd // num_heads
+    qh = q.float().reshape(b, nq, num_heads, d)
+    kh = k.float().reshape(b, nkv, num_heads, d)
+    sq = qh.abs().amax(-1).clamp_min(1e-6) * (1.0 / 127.0)
+    sk = kh.abs().amax(dim=(1, 3)).clamp_min(1e-6) * (1.0 / 127.0)
+    qq = torch.clamp(torch.round(qh * (1.0 / sq)[..., None]), -127.0, 127.0)
+    kq = torch.clamp(torch.round(kh * (1.0 / sk)[:, None, :, None]),
+                     -127.0, 127.0)
+    return qq.reshape(b, nq, hd), sq, kq.reshape(b, nkv, hd), sk
+
+
+def flash_attention_hd_int8_reference(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, num_heads: int,
+                                      kv_len: Optional[int] = None,
+                                      out_dtype: Optional[torch.dtype] = None
+                                      ) -> torch.Tensor:
+    """Plain PyTorch version of `flash_attention_hd_int8`: exact int q k^T
+    (f64), ``s = acc * (sq * (sk * q_scale))``, kv rows at or past ``kv_len``
+    masked, ``p = exp2(s)`` in v's dtype, ``(p@v) / max(sum p, 1e-37)``.
+    Returns ``out_dtype`` (default: q's dtype)."""
+    n = _check_shapes(q, k, v, num_heads, kv_len)
+    b, nq, hd = q.shape
+    nkv, d = k.shape[1], hd // num_heads
+    qq, sq, kq, sk = quantize_qk_reference(q, k, num_heads)
+    qh = qq.double().reshape(b, nq, num_heads, d).transpose(1, 2)
+    kh = kq.double().reshape(b, nkv, num_heads, d).transpose(1, 2)
+    acc = (qh @ kh.transpose(-1, -2)).float()            # [B, H, Nq, Nkv]
+    q_scale = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)
+    fac = sq.transpose(1, 2)[..., None] * (sk * q_scale)[:, :, None, None]
+    s = acc * fac
+    s[..., n:] = float("-inf")
+    p = torch.exp2(s).to(v.dtype).float()
+    vh = v.float().reshape(b, nkv, num_heads, d).transpose(1, 2)
+    out = (p @ vh) / p.sum(-1, keepdim=True).clamp_min(1e-37)
+    return out.transpose(1, 2).reshape(b, nq, hd).to(out_dtype or q.dtype)
+
+
+def flash_attention_qkv_packed_int8_reference(
+        qkv: torch.Tensor, num_heads: int,
+        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of `flash_attention_qkv_packed_int8`."""
+    hd = _check_packed(qkv, num_heads)
+    q, k, v = qkv.split(hd, dim=2)
+    return flash_attention_hd_int8_reference(q, k, v, num_heads,
+                                             out_dtype=out_dtype)
+
+
+@functools.cache
+def _lib_int8():
+    from cfgpp_tpu_torch.kernels.build import load_library
+
+    lib = load_library("flash_attention_int8")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cfgpp_flash_attention_hd_int8.argtypes = [p] * 9 + [i] * 6 + [f, p]
+    lib.cfgpp_flash_attention_qkv_packed_int8.argtypes = (
+        [p] * 7 + [i] * 4 + [f, p])
+    lib.cfgpp_flash_attention_hd_int8.restype = i
+    lib.cfgpp_flash_attention_qkv_packed_int8.restype = i
+    return lib
+
+
+def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
+    """Launch the int8-score kernel on (q, k, v) or on a packed ``qkv``;
+    returns (out, qq, sq, kq, sk), the stage outputs None unless
+    ``stages``.  kq rows at or past n are not read by the kernel: zero."""
+    x = q if qkv is None else qkv
+    if x.device.type != "cuda":
+        raise ValueError(f"int8-score attention: no kernel for {x.device}")
+    b, nq, hd = q.shape
+    nkv = k.shape[1]
+    tensors = {"q": q, "k": k, "v": v} if qkv is None else {"qkv": qkv}
+    d = _check_kernel_inputs(num_heads, hd, **tensors)
+    if d not in INT8_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the int8 kernel's "
+                         f"{INT8_HEAD_DIMS}")
+    dev = x.device
+    out = torch.empty((b, nq, hd), dtype=torch.bfloat16, device=dev)
+    kamax = torch.empty((b * num_heads,), dtype=torch.int32, device=dev)
+    st = [None] * 4
+    if stages:
+        st = [torch.empty((b, nq, hd), dtype=torch.int8, device=dev),
+              torch.empty((b, nq, num_heads), dtype=torch.float32, device=dev),
+              torch.zeros((b, nkv, hd), dtype=torch.int8, device=dev),
+              torch.empty((b, num_heads), dtype=torch.float32, device=dev)]
+    ptrs = [None if t is None else t.data_ptr() for t in st]
+    q_scale = d ** -0.5 * LOG2E
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if qkv is None:
+            err = _lib_int8().cfgpp_flash_attention_hd_int8(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kamax.data_ptr(), *ptrs, b, nq, nkv, num_heads, d, n,
+                q_scale, stream)
+        else:
+            err = _lib_int8().cfgpp_flash_attention_qkv_packed_int8(
+                qkv.data_ptr(), out.data_ptr(), kamax.data_ptr(), *ptrs, b,
+                nq, num_heads, d, q_scale, stream)
+    if err:
+        shapes = ", ".join(f"{name} {tuple(t.shape)}"
+                           for name, t in tensors.items())
+        raise RuntimeError(f"int8-score attention kernel launch failed: CUDA "
+                           f"error {err} ({shapes}, heads {num_heads})")
+    global int8_launches, packed_int8_launches
+    if qkv is None:
+        int8_launches += 1
+    else:
+        packed_int8_launches += 1
+    return (out, *st)
+
+
+def _check_int8_out(out_dtype, x) -> None:
+    if out_dtype not in (None, torch.bfloat16) and x.device.type == "cuda":
+        raise ValueError(f"the kernel writes bf16, not {out_dtype}")
+
+
+def flash_attention_hd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_heads: int, kv_len: Optional[int] = None,
+                            out_dtype: Optional[torch.dtype] = None
+                            ) -> torch.Tensor:
+    """Int8-score attention: q [B, Nq, H*D], k/v [B, Nkv, H*D] ->
+    [B, Nq, H*D], non-causal, kv rows at or past ``kv_len`` masked (the k
+    scale still covers every row, as the TPU kernel's).  CUDA tensors must be
+    bf16 with D in `INT8_HEAD_DIMS`; the output is bf16 there."""
+    n = _check_shapes(q, k, v, num_heads, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_hd_int8_reference(q, k, v, num_heads, kv_len,
+                                                 out_dtype)
+    _check_int8_out(out_dtype, q)
+    return _launch_int8(q, k, v, None, num_heads, n, stages=False)[0]
+
+
+def flash_attention_qkv_packed_int8(qkv: torch.Tensor, num_heads: int,
+                                    out_dtype: Optional[torch.dtype] = None
+                                    ) -> torch.Tensor:
+    """Int8-score self-attention on a packed [B, N, 3*H*D] projection ->
+    [B, N, H*D]; q, k and v are read in place as channel-offset views."""
+    hd = _check_packed(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_packed_int8_reference(qkv, num_heads,
+                                                         out_dtype)
+    _check_int8_out(out_dtype, qkv)
+    q, k, v = qkv.split(hd, dim=2)
+    return _launch_int8(q, k, v, qkv, num_heads, qkv.shape[1],
+                        stages=False)[0]
+
+
+def flash_attention_hd_int8_stages(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, num_heads: int,
+                                   kv_len: Optional[int] = None):
+    """Launch the int8-score kernel on CUDA tensors and return ``(out, qq,
+    sq, kq, sk)``: the output and what the kernel quantized (int8 q [B, Nq,
+    H*D], f32 q scales [B, Nq, H], int8 k [B, Nkv, H*D] with rows at or past
+    ``kv_len`` zero, f32 k scales [B, H]), which checks hold against
+    `quantize_qk_reference`."""
+    n = _check_shapes(q, k, v, num_heads, kv_len)
+    return _launch_int8(q, k, v, None, num_heads, n, stages=True)
+
+
+def flash_attention_qkv_packed_int8_stages(qkv: torch.Tensor, num_heads: int):
+    """`flash_attention_hd_int8_stages` for the packed entry point."""
+    hd = _check_packed(qkv, num_heads)
+    q, k, v = qkv.split(hd, dim=2)
+    return _launch_int8(q, k, v, qkv, num_heads, qkv.shape[1], stages=True)

@@ -4,9 +4,10 @@ every model of the port is built from.
 Counterpart of ``cfgpp_tpu/models/attention.py``.  Every unmasked attention
 goes through `cfgpp_tpu_torch.kernels.flash_attention.flash_attention_hd`
 (the Hopper kernel on a CUDA tensor, its plain version on a CPU tensor), and
-the int8 path's packed self-attention through `flash_attention_qkv_packed`;
-masked attention (CLIP's causal mask) stays plain PyTorch, as it stays XLA in
-the JAX package.
+the int8 path's packed self-attention through `flash_attention_qkv_packed`,
+or, with ``mode="all"``, through `flash_attention_qkv_packed_int8` where
+`int8_score_applies`; masked attention (CLIP's causal mask) stays plain
+PyTorch, as it stays XLA in the JAX package.
 
 The JAX modules keep a compute dtype apart from the parameter dtype (the VAE
 decodes with f32 parameters in bf16).  Here the compute dtype is the dtype of
@@ -23,7 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cfgpp_tpu_torch.kernels.flash_attention import (
-    flash_attention_hd, flash_attention_qkv_packed)
+    flash_attention_hd, flash_attention_qkv_packed,
+    flash_attention_qkv_packed_int8, int8_score_applies)
 from cfgpp_tpu_torch.models.quant import QuantLinear
 
 
@@ -102,7 +104,10 @@ class Attention(nn.Module):
     `QuantLinear`s and self-attention's to_q/to_k/to_v are one packed
     ``to_qkv``, as in ``cfgpp_tpu/models/attention.py:_quant_forward``: the
     block's pre-LayerNorm (``ln``) rides the first projection and its
-    residual add the ``to_out`` projection."""
+    residual add the ``to_out`` projection.  ``int8_score`` (set by
+    ``quantize_unet_(mode="all")`` on self-attention) runs the score dot in
+    int8 wherever `int8_score_applies`, as the JAX package's TPU route does;
+    cross-attention never does."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: Optional[int] = None):
@@ -114,6 +119,7 @@ class Attention(nn.Module):
         self.to_k = Linear(context_dim, inner, bias=False)
         self.to_v = Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, query_dim)])
+        self.int8_score = False
 
     def kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.to_k(context), self.to_v(context)
@@ -147,7 +153,12 @@ class Attention(nn.Module):
     def _quant_forward(self, x, context, kv_len, cached_kv, ln, residual):
         if context is None:
             qkv = self.to_qkv(x, ln=ln)
-            out = flash_attention_qkv_packed(qkv, self.num_heads)
+            d = qkv.shape[2] // 3 // self.num_heads
+            if self.int8_score and int8_score_applies(qkv.shape[1],
+                                                      self.num_heads, d):
+                out = flash_attention_qkv_packed_int8(qkv, self.num_heads)
+            else:
+                out = flash_attention_qkv_packed(qkv, self.num_heads)
         else:
             q = self.to_q(x, ln=ln)
             k, v = cached_kv if cached_kv is not None else self.kv(context)

@@ -10,11 +10,14 @@ Parameters are in the compute dtype (bf16 on the card); norms keep f32
 statistics.
 
 Covered: the conv-projection `Transformer2DModel` of SD-1.5 (and the tiny
-test config), exact and int8 ``mode="dense"``
+test config), exact and int8 ``mode="dense"`` and ``mode="all"``
 (`cfgpp_tpu_torch.weights.quantize` swaps the transformer projections for
 `QuantLinear`/`QuantConv`; the blocks below then take the JAX package's
 quant plumbing: each pre-LayerNorm rides the first int8 matmul of its
-sublayer, each residual the last).  The linear-projection variant and
+sublayer, each residual the last.  ``mode="all"`` also swaps the resnet
+convs and the upsampler conv, and the resnet folds each GroupNorm + SiLU
+into its conv's prologue, the time embedding into norm2's coefficients and
+the skip add into conv2's epilogue).  The linear-projection variant and
 SDXL's added text/time embedding are rejected, not approximated.
 """
 
@@ -31,7 +34,8 @@ from cfgpp_tpu.configs import UNetConfig
 from cfgpp_tpu_torch.kernels.int8_matmul import int8_ff_geglu
 from cfgpp_tpu_torch.models.attention import (Attention, Conv2d, GroupNorm,
                                               LayerNorm, Linear)
-from cfgpp_tpu_torch.models.quant import QuantConv, QuantLinear, ln_kwargs
+from cfgpp_tpu_torch.models.quant import (QuantConv, QuantLinear,
+                                          groupnorm_silu_coeffs, ln_kwargs)
 
 CrossKV = Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]
 
@@ -86,12 +90,33 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x, temb):
         t = self.time_emb_proj(F.silu(temb))
+        if isinstance(self.conv1, QuantConv):
+            return self._quant_forward(x, t)
         h = self.conv1(F.silu(self.norm1(x)))
         h = h + t[:, :, None, None]
         h = self.conv2(F.silu(self.norm2(h)))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+    def _quant_forward(self, x, t):
+        """``cfgpp_tpu/models/unet.py:69-93``: norm1 and norm2 (with the
+        time embedding) as per-(sample, channel) affines from one statistics
+        pass each, applied with the SiLU inside conv1 and conv2; the skip
+        add in conv2's epilogue."""
+        n1, n2 = self.norm1, self.norm2
+
+        def coeffs(norm, h, temb=None):
+            return groupnorm_silu_coeffs(h.permute(0, 2, 3, 1), norm.weight,
+                                         norm.bias, norm.num_groups,
+                                         temb=temb, eps=norm.eps)
+
+        s1, c1 = coeffs(n1, x)
+        h = self.conv1(x, gn_scale=s1, gn_bias=c1)
+        s2, c2 = coeffs(n2, h, t)
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return self.conv2(h, gn_scale=s2, gn_bias=c2, residual=x)
 
 
 class GEGLU(nn.Module):

@@ -17,6 +17,7 @@ per-output-channel weight scale, not a norm weight:
 
   int8 kernel [K,N]          -> int8 weight [N,K]
   int8 kernel [1,1,I,O]      -> int8 weight [O,I] (1x1 conv)
+  int8 kernel [3,3,I,O]      -> int8 weight [O,3,3,I] (3x3 conv)
   scale [N]                  -> weight_scale [N], f32
   bias [N]                   -> bias [N], f32
   attn1/to_qkv               -> attn1.to_qkv
@@ -70,12 +71,13 @@ def _tensor(kind: str, value) -> Tuple[str, torch.Tensor]:
 def _int8_tensor(kind: str, value) -> Tuple[str, torch.Tensor]:
     arr = np.asarray(value)
     if kind == "kernel":
-        if arr.ndim == 4:
-            if arr.shape[:2] != (1, 1):
-                raise ValueError(f"int8 conv kernel {arr.shape}: only 1x1 "
-                                 "convs are quantized in mode 'dense'")
+        if arr.ndim == 4 and arr.shape[:2] == (1, 1):
             arr = arr[0, 0]
-        return "weight", torch.from_numpy(np.ascontiguousarray(arr.T))
+        elif arr.ndim == 4 and arr.shape[:2] != (3, 3):
+            raise ValueError(f"int8 conv kernel {arr.shape}: the port's int8 "
+                             "convs are 1x1 or 3x3")
+        arr = arr.transpose(3, 0, 1, 2) if arr.ndim == 4 else arr.T
+        return "weight", torch.from_numpy(np.ascontiguousarray(arr))
     if kind == "scale":
         return "weight_scale", torch.from_numpy(arr.astype(np.float32))
     if kind == "bias":

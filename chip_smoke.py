@@ -13,10 +13,13 @@ Phases, one status line each; any failure exits non-zero:
    slices give it (bf16 inputs from a seed), with the tolerance stated, and
    both times per call: flash_attention_hd, flash_attention_qkv_packed,
    int8_matmul (every mode the int8 slice uses, and the affine prologue at a
-   level-1 shape) and int8_ff_geglu.  The int8 kernels are also held stage
-   by stage: their int8 rows and row scales against ``quantize_rows``, the
+   level-1 shape), int8_ff_geglu, int8_conv3x3 (the four SD-1.5 sites of
+   ``--quant all``, and the GroupNorm prologue with the residual) and the
+   int8-score attention (packed at level 1, unpacked at d=40).  The int8
+   kernels are also held stage by stage: their int8 rows (conv: windows,
+   attention: q and k) and scales against the plain quantizers, the
    feed-forward's f32 hidden state and its requantize, and each GEMM and
-   epilogue against the plain one run from the kernel's own int8 rows.
+   epilogue against the plain one run from the kernel's own int8 values.
 3. exact slice: SD-1.5 ``ddim_cfg++``, lambda=0.6, 50 NFE, 512^2, random
    weights from seed 0, bf16, three requests of batch 1 through
    ``DiffusionEngine.sample``.  Checks the images, the kernel launch count
@@ -29,7 +32,11 @@ Phases, one status line each; any failure exits non-zero:
    version, the quant-drift gate of ``cfgpp_tpu/cli/parity_check.py``
    (worst per-step rel-MAE of the int8 trajectory against the exact one
    from the same zT, < 0.15), and peak device memory.
-5. summary: a JSON line of the kernels, then the result line
+5. int8-all slice: the same requests with ``--quant all`` (the int8 UNet of
+   phase 4 plus int8 resnet and upsampler convs and the int8-score
+   self-attention where the JAX route takes them).  The same checks, with
+   the launches of all seven kernel entry points per request.
+6. summary: a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
@@ -84,6 +91,13 @@ MODEL_REL_L2_TOL = 3e-2
 # read 5.4-5.9e-2.  So this bound catches coarse faults only; the stage
 # checks above pin the kernels' numerics down.
 INT8_MODEL_REL_L2_TOL = 4e-2
+# The int8-all UNet quantizes more (its resnet convs per window of rows, its
+# level-1 attention scores), so its last-bit differences flip more int8
+# levels: on the H100 (t = 101/501/901) the kernels against the plain
+# versions read rel-L2 4.8-5.2e-2, while truncation in place of rounding
+# reads 9.0-9.5e-2 and 7-bit activations 8.4-8.9e-2.  The bound sits
+# between them.
+INT8_ALL_MODEL_REL_L2_TOL = 6.5e-2
 
 NFE = 50
 GUIDANCE = 0.6
@@ -105,6 +119,20 @@ INT8_LAUNCHES_PER_REQUEST = {
     "flash_attention_hd": 16 * NFE + 1,
 }
 QUANT_DRIFT_BUDGET = 0.15     # cfgpp_tpu/cli/parity_check.py --quant_budget
+# The int8-all slice, per request: the int8 slice's launches, plus per UNet
+# call 14 1x1 conv_shortcut int8_matmuls (down blocks 1-2: one each; every
+# up resnet), the 4 3x3 convs that int8_conv3x3_supported admits at 512^2
+# (CONV_CASES), and the level-1 self-attention (5 blocks) on the int8-score
+# kernel instead of the bf16 packed one.
+ALL_LAUNCHES_PER_REQUEST = {
+    "int8_matmul": INT8_LAUNCHES_PER_REQUEST["int8_matmul"] + 14 * NFE,
+    "int8_ff_geglu": 16 * NFE,
+    "int8_conv3x3": 4 * NFE,
+    "flash_attention_qkv_packed_int8": 5 * NFE,
+    "flash_attention_qkv_packed": 11 * NFE,
+    "flash_attention_hd": 16 * NFE + 1,
+    "flash_attention_hd_int8": 0,
+}
 
 # (site, q shape, kv rows, heads, kv_len, calls per request).  Heads are 8
 # in every SD-1.5 UNet block; 5 transformer blocks per level (2 down, 3 up),
@@ -145,6 +173,26 @@ INT8_FF_CASES = [(f"{lvl} ff", (2, n, c), blocks * NFE)
 # (site, packed qkv shape, heads, calls per request)
 PACKED_CASES = [(f"unet {lvl} self packed", (2, n, 3 * c), 8, blocks * NFE)
                 for lvl, n, c, blocks in LEVELS]
+# (site, x shape NHWC, O, GroupNorm prologue, residual, scale window rows br,
+# calls per request) for int8_conv3x3: the 3x3 convs of the UNet that
+# int8_conv3x3_supported admits at 512^2, and one prologue + residual case.
+CONV_CASES = [
+    ("up_blocks.1 upsampler", (2, 32, 32, 1280), 1280, False, False, 16, NFE),
+    ("up_blocks.2 resnets.0 conv1", (2, 32, 32, 1920), 640, True, False, 8,
+     NFE),
+    ("up_blocks.2 resnets.1 conv1", (2, 32, 32, 1280), 640, True, False, 16,
+     NFE),
+    ("up_blocks.2 upsampler", (2, 64, 64, 640), 640, False, False, 8, NFE),
+    ("prologue + residual (not on the path)", (2, 64, 64, 640), 640, True,
+     True, 8, 0),
+]
+# (site, shape, heads, packed, calls per request) for the int8-score
+# attention: level 1's self-attention, and the unpacked entry point at d=40
+# (SD-1.5 256^2 level 0 in the JAX route; not on the 512^2 path).
+INT8_ATTENTION_CASES = [
+    ("unet L1 self packed", (2, 1024, 3 * 640), 8, True, 5 * NFE),
+    ("d=40, 1024 tokens", (2, 1024, 320), 8, False, 0),
+]
 
 
 def fail(msg: str) -> None:
@@ -212,8 +260,9 @@ class KernelTable:
         self.rows = {}
 
     def measure(self, kernel_name, site, desc, kernel, ref, plain, calls,
-                rule="rel"):
-        """``rule``: "rel", "exact" or "ulp" (see the tolerances above)."""
+                rule="rel", others=None):
+        """``rule``: "rel", "exact" or "ulp" (see the tolerances above).
+        ``others``: {name: fn} of further routes to time beside the two."""
         out = kernel()
         torch.cuda.synchronize()
         want = ref()
@@ -232,14 +281,16 @@ class KernelTable:
                 f"tol {KERNEL_REL_TOL} x {scale:.3e}"
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
+        extra = {f"{name}_ms": time_ms(fn) for name, fn in (others or {}).items()}
+        shown = "".join(f" {k[:-3]} {v:.4f} ms" for k, v in extra.items())
         print(f"  {kernel_name} {site}: {desc}: max_abs_err {err:.3e} ({tol})"
-              f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{self.card}]",
-              flush=True)
+              f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms{shown}"
+              f" [{self.card}]", flush=True)
         check(ok, f"{kernel_name} disagrees with its plain version at {site}")
         self.rows.setdefault(kernel_name, []).append(
             {"site": site, "shape": desc, "calls_per_request": calls,
              "rule": rule, "max_abs_err": err, "beyond_one_ulp": off,
-             "ms": ms, "plain_ms": plain_ms})
+             "ms": ms, "plain_ms": plain_ms, **extra})
 
     def summary(self, kernel_name) -> dict:
         rows = self.rows[kernel_name]
@@ -251,8 +302,9 @@ class KernelTable:
 
 
 def compare_rows(site, xq, sx, want_xq, want_sx, ln: bool) -> str:
-    """The kernel's quantized rows against `quantize_rows`'s: bit for bit
-    without a LayerNorm, else within LN_FLIP_SHARE / SX_REL_TOL."""
+    """The kernel's quantized rows (or conv windows) against the plain
+    quantizer's: bit for bit without a prologue (LayerNorm, GroupNorm +
+    SiLU), else within LN_FLIP_SHARE / SX_REL_TOL."""
     d = (xq.float() - want_xq.float()).abs()
     flips, level = (d > 0).float().mean().item(), d.max().item()
     sx_rel = ((sx - want_sx).abs() / want_sx).max().item()
@@ -310,7 +362,40 @@ def check_ff_stages(tk, site, args, kw) -> None:
     check(epi_err == 0.0, f"{site}: second GEMM/epilogue differs")
 
 
-def phase_kernels(fa, tk, quantize_kernel_int8, table: KernelTable) -> None:
+def check_conv_stages(tc, site, x, wq, ws, kw) -> None:
+    """int8_conv3x3: the kernel's int8 windows and window scales against
+    `conv_windows_reference` (bit for bit without the prologue), and its
+    output against the plain GEMM and epilogue run from those windows
+    (exactly)."""
+    b, h, w, c = x.shape
+    out, xq, sx = tc.int8_conv3x3_stages(x, wq, ws, **kw)
+    want_xq, want_sx = tc.conv_windows_reference(
+        tc.conv_prologue_reference(x, kw.get("gn_scale"), kw.get("gn_bias")),
+        tc.scale_window_rows(h, w, c, wq.shape[0]))
+    rows = compare_rows(site, xq, sx, want_xq, want_sx, "gn_scale" in kw)
+    epi = tc.window_conv_reference(xq, sx, wq, ws, kw.get("bias"),
+                                   kw.get("residual"), b).bfloat16()
+    epi_err = (out.float() - epi.float()).abs().max().item()
+    print(f"    stages: {rows}; GEMM + epilogue from them max_abs_err"
+          f" {epi_err:.3e} (tol: exact)", flush=True)
+    check(epi_err == 0.0, f"{site}: conv GEMM/epilogue differs from the plain"
+          " one")
+
+
+def check_int8_score_stages(fa, site, q, k, stages) -> None:
+    """Int8-score attention: the kernel's int8 q and k and both scales
+    against `quantize_qk_reference`, bit for bit."""
+    _, qq, sq, kq, sk = stages
+    want = fa.quantize_qk_reference(q, k, sq.shape[-1])
+    same = [torch.equal(got.float(), w.float())
+            for got, w in zip((qq, sq, kq, sk), want)]
+    print(f"    stages: int8 q, q scales, int8 k, k scales equal to"
+          f" quantize_qk_reference: {same} (tol: exact)", flush=True)
+    check(all(same), f"{site}: int8 q/k or scales differ from the plain ones")
+
+
+def phase_kernels(fa, tk, tc, quantize_kernel_int8,
+                  quantize_conv_kernel_int8, table: KernelTable) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -379,6 +464,62 @@ def phase_kernels(fa, tk, quantize_kernel_int8, table: KernelTable) -> None:
             rule="ulp")
         check_ff_stages(tk, site, args, kw)
 
+    for site, (b, h, w, c), o, gn, res, br, calls in CONV_CASES:
+        check(tc.scale_window_rows(h, w, c, o) == br
+              and tc.int8_conv3x3_supported((b, h, w, c), (1, 1), 1, o),
+              f"int8_conv3x3 {site}: not a kernel site with br {br}")
+        x = randn(b, h, w, c).bfloat16()
+        wq, ws = quantize_conv_kernel_int8(randn(o, c, 3, 3,
+                                                 scale=(9 * c) ** -0.5))
+        kw = {"bias": randn(o, scale=0.1)}
+        if gn:
+            kw.update(gn_scale=1.0 + randn(b, c, scale=0.2),
+                      gn_bias=randn(b, c, scale=0.3))
+        if res:
+            kw["residual"] = randn(b, h, w, o).bfloat16()
+        wf = (wq.float() * ws[:, None, None, None]).bfloat16().permute(
+            0, 3, 1, 2)
+        xc = x.permute(0, 3, 1, 2)
+        table.measure(
+            "int8_conv3x3", site,
+            f"x {[b, h, w, c]} O {o} br {br}{' gn' if gn else ''}"
+            f"{' res' if res else ''}",
+            lambda: tc.int8_conv3x3(x, wq, ws, **kw),
+            lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw),
+            lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw), calls,
+            rule="ulp" if gn else "exact",
+            others={"bf16_dequant_conv": lambda: torch.nn.functional.conv2d(
+                xc, wf, padding=1)})
+        check_conv_stages(tc, site, x, wq, ws, kw)
+
+    for site, shape, heads, packed, calls in INT8_ATTENTION_CASES:
+        if packed:
+            qkv = randn(*shape).bfloat16()
+            q, k, v = qkv.split(shape[2] // 3, dim=2)
+            name = "flash_attention_qkv_packed_int8"
+            run = (lambda: fa.flash_attention_qkv_packed_int8(qkv, heads))
+            ref = (lambda: fa.flash_attention_qkv_packed_int8_reference(
+                qkv, heads, out_dtype=torch.float32))
+            plain = (lambda: fa.flash_attention_qkv_packed_int8_reference(
+                qkv, heads))
+            bf16 = (lambda: fa.flash_attention_qkv_packed(qkv, heads))
+            stages = fa.flash_attention_qkv_packed_int8_stages(qkv, heads)
+            d = shape[2] // 3 // heads
+        else:
+            q, k, v = (randn(*shape).bfloat16() for _ in range(3))
+            name = "flash_attention_hd_int8"
+            run = (lambda: fa.flash_attention_hd_int8(q, k, v, heads))
+            ref = (lambda: fa.flash_attention_hd_int8_reference(
+                q, k, v, heads, out_dtype=torch.float32))
+            plain = (lambda: fa.flash_attention_hd_int8_reference(q, k, v,
+                                                                  heads))
+            bf16 = (lambda: fa.flash_attention_hd(q, k, v, heads))
+            stages = fa.flash_attention_hd_int8_stages(q, k, v, heads)
+            d = shape[2] // heads
+        table.measure(name, site, f"{list(shape)} heads {heads} d {d}", run,
+                      ref, plain, calls, others={"bf16_kernel": bf16})
+        check_int8_score_stages(fa, site, q, k, stages)
+
 
 def unet_inputs(engine):
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -415,10 +556,32 @@ def phase_models_vs_plain_attention(engine, fa) -> None:
         check(err <= MODEL_REL_L2_TOL, f"{what}: kernel path disagrees")
 
 
-def phase_int8_unet_vs_plain(engine_q, fa, tk) -> None:
+def plain_kernels(fa, tk, tc):
+    """Every kernel wrapper of the UNet's modules patched to its plain
+    version."""
+    from contextlib import ExitStack
+
+    from cfgpp_tpu_torch.models import attention, quant
+    from cfgpp_tpu_torch.models import unet as unet_mod
+
+    stack = ExitStack()
+    for mod, name, ref in (
+            (quant, "int8_matmul", tk.int8_matmul_reference),
+            (quant, "int8_conv3x3", tc.int8_conv3x3_reference),
+            (unet_mod, "int8_ff_geglu", tk.int8_ff_geglu_reference),
+            (attention, "flash_attention_qkv_packed",
+             fa.flash_attention_qkv_packed_reference),
+            (attention, "flash_attention_qkv_packed_int8",
+             fa.flash_attention_qkv_packed_int8_reference),
+            (attention, "flash_attention_hd", fa.flash_attention_hd_reference)):
+        stack.enter_context(mock.patch.object(mod, name, ref))
+    return stack
+
+
+def phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label: str,
+                             tol: float) -> None:
     """One quantized UNet call with the kernels against the same modules with
     every kernel's plain version in its place."""
-    from cfgpp_tpu_torch.models import attention, quant
     from cfgpp_tpu_torch.models import unet as unet_mod
 
     unet = engine_q.bundle.unet
@@ -430,19 +593,14 @@ def phase_int8_unet_vs_plain(engine_q, fa, tk) -> None:
                         cross_kv=unet_mod.precompute_cross_kv(unet, ctx))
 
     eps_k = run()
-    with mock.patch.object(quant, "int8_matmul", tk.int8_matmul_reference), \
-            mock.patch.object(unet_mod, "int8_ff_geglu",
-                              tk.int8_ff_geglu_reference), \
-            mock.patch.object(attention, "flash_attention_qkv_packed",
-                              fa.flash_attention_qkv_packed_reference), \
-            mock.patch.object(attention, "flash_attention_hd",
-                              fa.flash_attention_hd_reference):
+    with plain_kernels(fa, tk, tc):
         eps_p = run()
     err = rel_l2(eps_k, eps_p)
-    print(f"  int8 unet eps: kernels vs plain versions rel_l2 {err:.3e}"
-          f" (tol {INT8_MODEL_REL_L2_TOL})", flush=True)
-    check(bool(torch.isfinite(eps_k).all()), "int8 unet eps: non-finite output")
-    check(err <= INT8_MODEL_REL_L2_TOL, "int8 unet eps: kernel path disagrees")
+    print(f"  {label} unet eps: kernels vs plain versions rel_l2 {err:.3e}"
+          f" (tol {tol})", flush=True)
+    check(bool(torch.isfinite(eps_k).all()),
+          f"{label} unet eps: non-finite output")
+    check(err <= tol, f"{label} unet eps: kernel path disagrees")
 
 
 def run_requests(engine, counters, card: str, label: str):
@@ -479,41 +637,32 @@ def run_requests(engine, counters, card: str, label: str):
     return counts
 
 
-def counters(fa, tk):
+def counters(fa, tk, tc):
     return {"flash_attention_hd": lambda: fa.launches,
             "flash_attention_qkv_packed": lambda: fa.packed_launches,
+            "flash_attention_hd_int8": lambda: fa.int8_launches,
+            "flash_attention_qkv_packed_int8": lambda: fa.packed_int8_launches,
             "int8_matmul": lambda: tk.matmul_launches,
-            "int8_ff_geglu": lambda: tk.ff_launches}
+            "int8_ff_geglu": lambda: tk.ff_launches,
+            "int8_conv3x3": lambda: tc.conv_launches}
 
 
-def reset_counts(fa, tk) -> None:
-    fa.reset_launches()
-    tk.reset_launches()
-
-
-def phase_slice(engine, fa, tk, card: str) -> int:
+def phase_slice_requests(engine, fa, tk, tc, card: str, label: str,
+                         expected: dict) -> dict:
+    """Three requests with every count set to 0 just before them; checks the
+    launches of each request and returns the counts of the whole run."""
+    reads = counters(fa, tk, tc)
+    want = {name: expected.get(name, 0) for name in reads}
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa, tk)
-    counts = run_requests(engine, counters(fa, tk), card, "exact")
-    expected = {"flash_attention_hd": LAUNCHES_PER_REQUEST,
-                "flash_attention_qkv_packed": 0, "int8_matmul": 0,
-                "int8_ff_geglu": 0}
-    check(all(n == expected for n in counts),
-          f"exact: launches per request {counts}, expected {expected}")
-    return fa.launches
+    for mod in (fa, tk, tc):
+        mod.reset_launches()
+    counts = run_requests(engine, reads, card, label)
+    check(all(n == want for n in counts),
+          f"{label}: launches per request {counts}, expected {want}")
+    return {name: read() for name, read in reads.items()}
 
 
-def phase_int8_slice(engine_q, fa, tk, card: str) -> dict:
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa, tk)
-    counts = run_requests(engine_q, counters(fa, tk), card, "int8")
-    check(all(n == INT8_LAUNCHES_PER_REQUEST for n in counts),
-          f"int8: launches per request {counts}, expected "
-          f"{INT8_LAUNCHES_PER_REQUEST}")
-    return {name: read() for name, read in counters(fa, tk).items()}
-
-
-def phase_quant_drift(engine, engine_q) -> float:
+def phase_quant_drift(engine, engine_q, label: str) -> float:
     """``cfgpp_tpu/cli/parity_check.py:run_quant_drift``: per-step MAE of the
     int8 trajectory against the exact one from the same zT, each normalized
     by the exact step's mean magnitude; the worst must stay under 0.15."""
@@ -527,9 +676,9 @@ def phase_quant_drift(engine, engine_q) -> float:
             rel = ((q - e).abs().mean() / e.abs().mean().clamp_min(1e-6)).item()
             if rel > worst:
                 worst, worst_step = rel, i
-    print(f"  quant drift: worst per-step rel-MAE {worst:.4f} at step"
+    print(f"  {label} quant drift: worst per-step rel-MAE {worst:.4f} at step"
           f" {worst_step} (budget {QUANT_DRIFT_BUDGET})", flush=True)
-    check(worst < QUANT_DRIFT_BUDGET, f"quant drift {worst} over budget")
+    check(worst < QUANT_DRIFT_BUDGET, f"{label}: quant drift {worst} over budget")
     return worst
 
 
@@ -538,10 +687,17 @@ KERNEL_SOURCES = {
                            "cfgpp_tpu/kernels/flash_attention.py:378"),
     "flash_attention_qkv_packed": ("cfgpp_tpu_torch/csrc/flash_attention.cu",
                                    "cfgpp_tpu/kernels/flash_attention.py:614"),
+    "flash_attention_hd_int8": ("cfgpp_tpu_torch/csrc/flash_attention_int8.cu",
+                                "cfgpp_tpu/kernels/flash_attention.py:470"),
+    "flash_attention_qkv_packed_int8": (
+        "cfgpp_tpu_torch/csrc/flash_attention_int8.cu",
+        "cfgpp_tpu/kernels/flash_attention.py:544"),
     "int8_matmul": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
                     "cfgpp_tpu/kernels/int8_matmul.py:163"),
     "int8_ff_geglu": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
                       "cfgpp_tpu/kernels/int8_matmul.py:305"),
+    "int8_conv3x3": ("cfgpp_tpu_torch/csrc/int8_conv.cu",
+                     "cfgpp_tpu/kernels/int8_conv.py:225"),
 }
 
 
@@ -558,8 +714,10 @@ def main() -> None:
     from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
     from cfgpp_tpu_torch.kernels import build
     from cfgpp_tpu_torch.kernels import flash_attention as fa
+    from cfgpp_tpu_torch.kernels import int8_conv as tc
     from cfgpp_tpu_torch.kernels import int8_matmul as tk
-    from cfgpp_tpu_torch.models.quant import quantize_kernel_int8
+    from cfgpp_tpu_torch.models.quant import (quantize_conv_kernel_int8,
+                                              quantize_kernel_int8)
 
     # the plain versions are f32 references: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -573,7 +731,8 @@ def main() -> None:
     print("phase 1 ok: every CUDA library built and loaded", flush=True)
 
     table = KernelTable(card)
-    phase_kernels(fa, tk, quantize_kernel_int8, table)
+    phase_kernels(fa, tk, tc, quantize_kernel_int8, quantize_conv_kernel_int8,
+                  table)
     print(f"phase 2 ok: {len(KERNEL_SOURCES)} kernels match their plain"
           f" versions at {sum(map(len, table.rows.values()))} shapes",
           flush=True)
@@ -586,31 +745,43 @@ def main() -> None:
     print(f"  random sd15 bundle on the card in {time.perf_counter() - t0:.2f} s",
           flush=True)
     phase_models_vs_plain_attention(engine, fa)
-    exact_hd = phase_slice(engine, fa, tk, card)
+    launches = {"exact": phase_slice_requests(
+        engine, fa, tk, tc, card, "exact",
+        {"flash_attention_hd": LAUNCHES_PER_REQUEST})}
     print("phase 3 ok: SD-1.5 ddim_cfg++ exact slice, 3 requests", flush=True)
 
     engine_q = DiffusionEngine(bundle.quantized("dense"), "ddim_cfg++", nfe=NFE)
-    phase_int8_unet_vs_plain(engine_q, fa, tk)
-    int8_counts = phase_int8_slice(engine_q, fa, tk, card)
-    drift = phase_quant_drift(engine, engine_q)
+    phase_int8_unet_vs_plain(engine_q, fa, tk, tc, "int8",
+                             INT8_MODEL_REL_L2_TOL)
+    launches["dense"] = phase_slice_requests(
+        engine_q, fa, tk, tc, card, "int8", INT8_LAUNCHES_PER_REQUEST)
+    drift = {"dense": phase_quant_drift(engine, engine_q, "int8")}
     print("phase 4 ok: SD-1.5 ddim_cfg++ int8 (--quant dense) slice, 3 requests",
           flush=True)
+    del engine_q
+    torch.cuda.empty_cache()
+
+    engine_a = DiffusionEngine(bundle.quantized("all"), "ddim_cfg++", nfe=NFE)
+    phase_int8_unet_vs_plain(engine_a, fa, tk, tc, "int8-all",
+                             INT8_ALL_MODEL_REL_L2_TOL)
+    launches["all"] = phase_slice_requests(
+        engine_a, fa, tk, tc, card, "int8-all", ALL_LAUNCHES_PER_REQUEST)
+    drift["all"] = phase_quant_drift(engine, engine_a, "int8-all")
+    print("phase 5 ok: SD-1.5 ddim_cfg++ int8-all (--quant all) slice,"
+          " 3 requests", flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         summary = table.summary(name)
-        entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces,
-                 "launches": exact_hd if name == "flash_attention_hd"
-                 else int8_counts[name],
-                 "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
-                 "plain_ms": summary["plain_ms"],
-                 "ms_per": "request: sum over the slice's calls of calls x"
-                           " time per call"}
-        if name == "flash_attention_hd":
-            entry["launches_int8_slice"] = int8_counts[name]
-        entry["shapes"] = summary["shapes"]
-        kernels.append(entry)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches["all"][name],
+            "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
+            "plain_ms": summary["plain_ms"],
+            "ms_per": "request: sum over the shapes of calls per request"
+                      " (in the slice that runs each) x time per call",
+            "launches_by_path": {path: n[name] for path, n in launches.items()},
+            "shapes": summary["shapes"]})
     print(json.dumps({"kernels": kernels, "quant_drift": drift}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,8 @@ Weights: the port's quantizer against ``quantize_unet_params(mode="dense")``.
 
 Modules (tiny widths, f32): the quantized `Attention`, `FeedForward`,
 `BasicTransformerBlock` and `Transformer2DModel` against the Flax modules on
-two routes.  ``cpu``: the JAX package's CPU route (layernorm_ref +
-quant_dense_apply), which is W8A8 in f32 as the port is, except that it
+two routes.  ``cpu``: the JAX package's CPU route (layernorm_ref and its
+W8A8 dense recipe), which is W8A8 in f32 as the port is, except that it
 divides by the activation scale where the kernels multiply by its inverse:
 2e-4 x max(1, scale), as the exact modules are held.  Its 1x1 QuantConv is a
 dequantized-weight conv instead (quant.py:126-144), so `Transformer2DModel`
@@ -236,32 +236,42 @@ def test_wrappers_reject_other_devices_and_bad_shapes():
 
 
 def test_quant_recipes_match_jax():
-    """quantize_kernel_int8 / quantize_activation_int8 / quant_dense_apply
-    equal the JAX functions (same formulas, exact int dot)."""
+    """The port's plain recipes outside the kernels equal the JAX functions:
+    the weight quantizers (2-D and conv: the same int8 values, scales to one
+    ulp), `layernorm_ref` and `groupnorm_silu_coeffs` (f32, summation order
+    only).  The activation quantize is held through `quantize_rows` against
+    the Pallas kernels above."""
     rng = np.random.default_rng(12)
     w = (0.05 * rng.standard_normal((1280, 96))).astype(np.float32)
-    x = rng.standard_normal((7, 1280)).astype(np.float32)
-    b = rng.standard_normal(96).astype(np.float32)
     jwq, jws = jax_quant.quantize_kernel_int8(w)
     twq, tws = tq.quantize_kernel_int8(T(w.T))
     np.testing.assert_array_equal(twq.numpy(), np.asarray(jwq).T)
     # XLA may turn the division by 127 into a multiply: one ulp
     np.testing.assert_allclose(tws.numpy(), np.asarray(jws), rtol=1e-6)
-    jxq, jsx = jax_quant.quantize_activation_int8(jnp.asarray(x))
-    txq, tsx = tq.quantize_activation_int8(T(x))
-    np.testing.assert_array_equal(txq.numpy(), np.asarray(jxq))
-    np.testing.assert_array_equal(tsx.numpy(), np.asarray(jsx))
-    want = jax_quant.quant_dense_apply(jnp.asarray(x), jwq, jws,
-                                       jnp.asarray(b), jnp.float32)
-    got = tq.quant_dense_apply(T(x), twq, tws, T(b), torch.float32)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
-                               atol=1e-6)
+    wc = (0.05 * rng.standard_normal((3, 3, 64, 48))).astype(np.float32)
+    jcq, jcs = jax_quant.quantize_conv_kernel_int8(wc)
+    tcq, tcs = tq.quantize_conv_kernel_int8(T(wc.transpose(3, 2, 0, 1)))
+    np.testing.assert_array_equal(tcq.numpy(),
+                                  np.asarray(jcq).transpose(3, 0, 1, 2))
+    np.testing.assert_allclose(tcs.numpy(), np.asarray(jcs), rtol=1e-6)
+    x = rng.standard_normal((7, 1280)).astype(np.float32)
     g, be = rng.standard_normal(1280).astype(np.float32), np.zeros(1280, np.float32)
     np.testing.assert_allclose(
         tq.layernorm_ref(T(x), T(g), T(be)).numpy(),
         np.asarray(jax_quant.layernorm_ref(jnp.asarray(x), jnp.asarray(g),
                                            jnp.asarray(be))),
         rtol=0, atol=1e-5)
+    xi = (2.0 * rng.standard_normal((2, 4, 8, 64)) + 0.5).astype(np.float32)
+    t = rng.standard_normal((2, 64)).astype(np.float32)
+    gm, bt = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32), \
+        (0.1 * rng.standard_normal(64)).astype(np.float32)
+    for got, want in zip(
+            tq.groupnorm_silu_coeffs(T(xi), T(gm), T(bt), 8, temb=T(t)),
+            jax_quant.groupnorm_silu_coeffs(jnp.asarray(xi), jnp.asarray(gm),
+                                            jnp.asarray(bt), 8,
+                                            temb=jnp.asarray(t))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
 
 
 # ------------------------------------------------------------------- weights
@@ -314,7 +324,8 @@ def test_bf16_bundle_keeps_scales_and_biases_f32():
     exact = ModelBundle.random_init("tiny_sd", seed=0, dtype=torch.bfloat16,
                                     device="cpu")
     bundle = exact.quantized()
-    quant = [m for m in bundle.unet.modules() if isinstance(m, tq.QuantLinear)]
+    quant = [m for m in bundle.unet.modules()
+             if isinstance(m, (tq.QuantLinear, tq.QuantConv))]
     sites = len(list(bundle.unet.cross_attention_sites()))
     assert len(quant) == 10 * sites     # proj_in/out + 8 per (one) block
     for m in quant:
@@ -322,7 +333,7 @@ def test_bf16_bundle_keeps_scales_and_biases_f32():
         assert m.weight_scale.dtype == torch.float32
         assert m.bias is None or m.bias.dtype == torch.float32
     assert bundle.unet.conv_in.weight.dtype == torch.bfloat16
-    assert not any(isinstance(m, tq.QuantLinear)
+    assert not any(isinstance(m, (tq.QuantLinear, tq.QuantConv))
                    for m in exact.unet.modules())   # the exact UNet stays
     img = bundle.unet(torch.zeros(1, 8, 8, 4), torch.tensor(5),
                       torch.zeros(1, 77, 32))
@@ -330,14 +341,16 @@ def test_bf16_bundle_keeps_scales_and_biases_f32():
 
 
 def test_unported_modes_raise():
+    """An unknown mode raises; a 3x3 `QuantConv` builds (int8 [O, 3, 3, I]),
+    other kernel sizes raise."""
     unet = ModelBundle.random_init("tiny_sd", seed=0, dtype=torch.float32,
                                    device="cpu").unet
-    with pytest.raises(NotImplementedError, match="'all'"):
-        quantize_unet_(unet, mode="all")
     with pytest.raises(ValueError, match="mode"):
         quantize_unet_(unet, mode="int4")
-    with pytest.raises(NotImplementedError, match="mode='all'"):
-        tq.QuantConv(8, 8, kernel_size=3)
+    conv = tq.QuantConv(8, 16, kernel_size=3)
+    assert conv.weight.shape == (16, 3, 3, 8) and conv.weight.dtype == torch.int8
+    with pytest.raises(ValueError, match="1x1 or 3x3"):
+        tq.QuantConv(8, 8, kernel_size=5)
 
 
 # ------------------------------------------------------------------- modules
