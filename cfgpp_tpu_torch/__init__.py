@@ -1,20 +1,24 @@
 """cfgpp_tpu_torch — the PyTorch / CUDA port of cfgpp_tpu for NVIDIA Hopper.
 
 Module paths mirror ``cfgpp_tpu/``, whose JAX code is the reference each
-module is tested against.  The port imports torch and never jax; of the JAX
-package it imports only the numpy-only ``configs``, ``schedules`` and
-``weights.tokenizer``.
+module is tested against.  The port imports torch and never jax, and
+nothing of the JAX package: ``configs``, ``schedules.ddim`` and
+``weights.tokenizer`` are copies, held equal to the JAX package's by
+``tests/test_torch_port_copies.py``.
 
 Layer map (bottom-up):
+  configs     model architecture configs (copy)
   csrc/       hand-written CUDA C++ kernels (sm_90a), built at first use
   kernels/    their wrappers (kernel on a CUDA tensor, plain PyTorch on a
               CPU tensor), the nvcc build and the ctypes loader
   models/     CLIP text encoder, UNet2DCondition (SD-1.5 layout), VAE
-  weights/    JAX parameter trees -> the port's state dicts
+  weights/    JAX parameter trees -> the port's state dicts; the CLIP
+              tokenizer (copy)
+  schedules/  DDIM noise-schedule tables (copy)
   solvers/    DDIM / DDIM-CFG++ plans, steps and the sampling loop
   engine/     ModelBundle + DiffusionEngine (tokenize -> encode -> solve ->
               decode)
-  utils/      image output
+  utils/      image output; roofline bounds of the kernels' work
   cli/        text_to_img
 """
 

@@ -26,8 +26,8 @@ from typing import Any, Mapping, Optional, Union
 import torch
 from torch import nn
 
-from cfgpp_tpu.configs import ModelBundleConfig, get_bundle_config
-from cfgpp_tpu.weights.tokenizer import load_tokenizer
+from cfgpp_tpu_torch.configs import ModelBundleConfig, get_bundle_config
+from cfgpp_tpu_torch.weights.tokenizer import load_tokenizer
 from cfgpp_tpu_torch.models.clip import CLIPTextModel
 from cfgpp_tpu_torch.models.unet import UNet2DConditionModel
 from cfgpp_tpu_torch.models.vae import AutoencoderKL

@@ -16,7 +16,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cfgpp_tpu.schedules.ddim import make_ddim_schedule
+from cfgpp_tpu_torch.schedules.ddim import make_ddim_schedule
 from cfgpp_tpu_torch.engine.bundle import ModelBundle
 from cfgpp_tpu_torch.models.unet import precompute_cross_kv
 from cfgpp_tpu_torch.solvers.registry import get_solver_spec

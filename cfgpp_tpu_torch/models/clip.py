@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cfgpp_tpu.configs import CLIPTextConfig
+from cfgpp_tpu_torch.configs import CLIPTextConfig
 from cfgpp_tpu_torch.models.attention import CLIPAttention, LayerNorm, Linear
 
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cfgpp_tpu.configs import UNetConfig
+from cfgpp_tpu_torch.configs import UNetConfig
 from cfgpp_tpu_torch.kernels.int8_matmul import int8_ff_geglu
 from cfgpp_tpu_torch.models.attention import (Attention, Conv2d, GroupNorm,
                                               LayerNorm, Linear)

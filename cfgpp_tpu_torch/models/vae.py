@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cfgpp_tpu.configs import VAEConfig
+from cfgpp_tpu_torch.configs import VAEConfig
 from cfgpp_tpu_torch.models.attention import Conv2d, GroupNorm, Linear, sdpa
 
 

@@ -1,8 +1,7 @@
 """Per-solver coefficient planning (host, numpy), counterpart of
 ``cfgpp_tpu/solvers/plans.py``.
 
-Ported rather than imported: ``cfgpp_tpu.solvers`` imports its JAX sampler
-in its package ``__init__``, and the port never imports JAX.
+Ported rather than imported: the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +11,7 @@ from typing import Dict
 
 import numpy as np
 
-from cfgpp_tpu.schedules.ddim import DDIMSchedule
+from cfgpp_tpu_torch.schedules.ddim import DDIMSchedule
 
 
 @dataclasses.dataclass(frozen=True)

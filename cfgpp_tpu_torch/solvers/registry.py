@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from cfgpp_tpu.schedules.ddim import DDIMSchedule
+from cfgpp_tpu_torch.schedules.ddim import DDIMSchedule
 from cfgpp_tpu_torch.solvers import plans
 
 

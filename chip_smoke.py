@@ -10,8 +10,11 @@ Phases, one status line each; any failure exits non-zero:
    every CUDA library from the sources in this checkout (one nvcc per
    source, all started together).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
-   slices give it (bf16 inputs from a seed), with the tolerance stated, and
-   both times per call: flash_attention_hd, flash_attention_qkv_packed,
+   slices give it (bf16 inputs from a seed), with the tolerance stated; both
+   times per call beside the work's bound on the card
+   (``cfgpp_tpu_torch/utils/roofline.py``) and, for the bf16 attention, the
+   time of ``scaled_dot_product_attention`` on the same inputs and the
+   backend that served it: flash_attention_hd, flash_attention_qkv_packed,
    int8_matmul (every mode the int8 slice uses, and the affine prologue at a
    level-1 shape), int8_ff_geglu, int8_conv3x3 (the four SD-1.5 sites of
    ``--quant all``, and the GroupNorm prologue with the residual) and the
@@ -54,6 +57,7 @@ from pathlib import Path
 from unittest import mock
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 
@@ -149,6 +153,8 @@ ATTENTION_CASES = [
     ("unet mid cross", (2, 64, 1280), 77, 8, None, NFE),
     ("vae mid self", (1, 4096, 512), 4096, 1, None, 1),
     ("cross kv padded to 128", (2, 4096, 320), 128, 8, 77, 0),
+    ("d=64 (SDXL's head dim; not on the path)", (2, 1024, 640), 1024, 10,
+     None, 0),
 ]
 # The int8 slice's shapes: (level, tokens per image, channels, transformer
 # blocks); the UNet runs batch 2B = 2.
@@ -212,10 +218,19 @@ def card_name_and_power() -> str:
     return out.stdout.strip()
 
 
+# Device-side spin before each timed run (about 25 ms at the H100's clocks):
+# the host queues the timed calls behind it, so a call shorter than its own
+# enqueue (a wrapper takes 20-30 us of host time) is timed on the device and
+# not at the host's enqueue rate.
+SPIN_CYCLES = 50_000_000
+
+
 def time_ms(fn, reps: int = 20) -> float:
     """Mean device time per call over ``reps`` calls, after one warm-up."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -251,18 +266,50 @@ def build_all(build) -> None:
         build.load_library(name)
 
 
+def sdpa_backend(fn) -> str:
+    """The backend that served one ``scaled_dot_product_attention`` call,
+    read from the names of the device kernels it launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return "unknown: no device kernels in the trace"
+    low = " ".join(names).lower()
+    for backend, keys in (("cudnn", ("cudnn",)),
+                          ("flash", ("flash",)),
+                          ("efficient", ("fmha", "cutlassf", "mem_eff"))):
+        if any(key in low for key in keys):
+            return backend
+    return "math: " + ", ".join(sorted(set(n[:40] for n in names)))
+
+
+def sdpa_heads(x, heads: int, rows: int):
+    """[B, N, H*D] -> the head-split view [B, H, rows, D] (no copy)."""
+    b, n, hd = x.shape
+    return x.view(b, n, heads, hd // heads)[:, :rows].transpose(1, 2)
+
+
 class KernelTable:
-    """Per-kernel rows of phase 2: error against the plain version and both
-    times per call at each shape."""
+    """Per-kernel rows of phase 2: error against the plain version, both
+    times per call, the work's bound on the card and, where one PyTorch call
+    computes the same function, that call's time at each shape."""
 
     def __init__(self, card: str):
         self.card = card
         self.rows = {}
 
     def measure(self, kernel_name, site, desc, kernel, ref, plain, calls,
-                rule="rel", others=None):
+                work, rule="rel", library=None, others=None):
         """``rule``: "rel", "exact" or "ulp" (see the tolerances above).
-        ``others``: {name: fn} of further routes to time beside the two."""
+        ``work``: the `roofline.Work` of one call.  ``library``: the one
+        PyTorch call that computes the same function, timed beside the
+        kernel (never used by the port).  ``others``: {name: fn} of further
+        routes to time beside them."""
         out = kernel()
         torch.cuda.synchronize()
         want = ref()
@@ -281,23 +328,40 @@ class KernelTable:
                 f"tol {KERNEL_REL_TOL} x {scale:.3e}"
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
+        bound_ms = work.bound_ms()
         extra = {f"{name}_ms": time_ms(fn) for name, fn in (others or {}).items()}
         shown = "".join(f" {k[:-3]} {v:.4f} ms" for k, v in extra.items())
+        library_ms = backend = None
+        if library is not None:
+            library_ms, backend = time_ms(library), sdpa_backend(library)
+            shown += f" library {library_ms:.4f} ms ({backend})"
         print(f"  {kernel_name} {site}: {desc}: max_abs_err {err:.3e} ({tol})"
-              f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms{shown}"
-              f" [{self.card}]", flush=True)
+              f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms{shown} bound"
+              f" {bound_ms:.5f} ms by {work.bound_by()}, {bound_ms / ms:.1%}"
+              f" of it [{self.card}]", flush=True)
         check(ok, f"{kernel_name} disagrees with its plain version at {site}")
         self.rows.setdefault(kernel_name, []).append(
             {"site": site, "shape": desc, "calls_per_request": calls,
              "rule": rule, "max_abs_err": err, "beyond_one_ulp": off,
-             "ms": ms, "plain_ms": plain_ms, **extra})
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": work.bound_by(), "share_of_bound": bound_ms / ms,
+             "library_ms": library_ms, "library_backend": backend, **extra})
 
     def summary(self, kernel_name) -> dict:
+        """Per request: the sum over the shapes of calls x time per call."""
         rows = self.rows[kernel_name]
+
+        def per_request(key):
+            return sum(r["calls_per_request"] * r[key] for r in rows)
+
+        top = max(rows, key=lambda r: (r["calls_per_request"] * r["bound_ms"],
+                                       r["bound_ms"]))
+        library = all(r["library_ms"] is not None for r in rows)
         return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": sum(r["calls_per_request"] * r["ms"] for r in rows),
-                "plain_ms": sum(r["calls_per_request"] * r["plain_ms"]
-                                for r in rows),
+                "ms": per_request("ms"), "plain_ms": per_request("plain_ms"),
+                "bound_ms": per_request("bound_ms"),
+                "bound_by": top["bound_by"],
+                "library_ms": per_request("library_ms") if library else None,
                 "shapes": rows}
 
 
@@ -394,7 +458,7 @@ def check_int8_score_stages(fa, site, q, k, stages) -> None:
     check(all(same), f"{site}: int8 q/k or scales differ from the plain ones")
 
 
-def phase_kernels(fa, tk, tc, quantize_kernel_int8,
+def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
                   quantize_conv_kernel_int8, table: KernelTable) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -404,6 +468,9 @@ def phase_kernels(fa, tk, tc, quantize_kernel_int8,
     for site, (b, n, c), nkv, heads, kv_len, calls in ATTENTION_CASES:
         q, k, v = (randn(*shape).bfloat16()
                    for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
+        rows = nkv if kv_len is None else kv_len
+        qh, kh, vh = (sdpa_heads(x, heads, r)
+                      for x, r in ((q, n), (k, rows), (v, rows)))
         table.measure(
             "flash_attention_hd", site,
             f"q {[b, n, c]} kv {nkv} heads {heads} d {c // heads} kv_len {kv_len}",
@@ -411,16 +478,23 @@ def phase_kernels(fa, tk, tc, quantize_kernel_int8,
             lambda: fa.flash_attention_hd_reference(
                 q.float(), k.float(), v.float(), heads, kv_len=kv_len),
             lambda: fa.flash_attention_hd_reference(q, k, v, heads,
-                                                    kv_len=kv_len), calls)
+                                                    kv_len=kv_len), calls,
+            rl.flash_attention(b, n, rows, heads, c // heads),
+            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
 
     for site, shape, heads, calls in PACKED_CASES:
         qkv = randn(*shape).bfloat16()
+        b, n, c3 = shape
+        qh, kh, vh = (sdpa_heads(x, heads, n)
+                      for x in qkv.split(c3 // 3, dim=2))
         table.measure(
             "flash_attention_qkv_packed", site,
-            f"qkv {list(shape)} heads {heads} d {shape[2] // 3 // heads}",
+            f"qkv {list(shape)} heads {heads} d {c3 // 3 // heads}",
             lambda: fa.flash_attention_qkv_packed(qkv, heads),
             lambda: fa.flash_attention_qkv_packed_reference(qkv.float(), heads),
-            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), calls)
+            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), calls,
+            rl.flash_attention(b, n, n, heads, c3 // 3 // heads),
+            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
 
     def weights(k, n):
         wq, ws = quantize_kernel_int8(randn(n, k, scale=k ** -0.5))
@@ -440,11 +514,14 @@ def phase_kernels(fa, tk, tc, quantize_kernel_int8,
         elif mode == "affine":
             kw = dict(affine_scale=randn(b, k), affine_bias=randn(b, k),
                       bias=bias)
+        work = rl.int8_matmul(b * t, k, n, ln=mode == "ln",
+                              bias="bias" in kw, residual="residual" in kw,
+                              affine=b if mode == "affine" else 0)
         table.measure(
             "int8_matmul", site, f"x {[b, t, k]} N {n} {mode}",
             lambda: tk.int8_matmul(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw),
-            lambda: tk.int8_matmul_reference(x, wq, ws, **kw), calls,
+            lambda: tk.int8_matmul_reference(x, wq, ws, **kw), calls, work,
             rule="ulp" if mode == "ln" else "exact")
         check_matmul_stages(tk, site, x, wq, ws, kw)
 
@@ -461,7 +538,7 @@ def phase_kernels(fa, tk, tc, quantize_kernel_int8,
             lambda: tk.int8_ff_geglu(*args, **kw),
             lambda: tk.int8_ff_geglu_reference(*args, **kw),
             lambda: tk.int8_ff_geglu_reference(*args, **kw), calls,
-            rule="ulp")
+            rl.int8_ff_geglu(b * t, c), rule="ulp")
         check_ff_stages(tk, site, args, kw)
 
     for site, (b, h, w, c), o, gn, res, br, calls in CONV_CASES:
@@ -487,6 +564,7 @@ def phase_kernels(fa, tk, tc, quantize_kernel_int8,
             lambda: tc.int8_conv3x3(x, wq, ws, **kw),
             lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw),
             lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw), calls,
+            rl.int8_conv3x3(b, h, w, c, o, groupnorm=gn, residual=res),
             rule="ulp" if gn else "exact",
             others={"bf16_dequant_conv": lambda: torch.nn.functional.conv2d(
                 xc, wf, padding=1)})
@@ -517,7 +595,10 @@ def phase_kernels(fa, tk, tc, quantize_kernel_int8,
             stages = fa.flash_attention_hd_int8_stages(q, k, v, heads)
             d = shape[2] // heads
         table.measure(name, site, f"{list(shape)} heads {heads} d {d}", run,
-                      ref, plain, calls, others={"bf16_kernel": bf16})
+                      ref, plain, calls,
+                      rl.flash_attention_int8(shape[0], shape[1], shape[1],
+                                              heads, d),
+                      others={"bf16_kernel": bf16})
         check_int8_score_stages(fa, site, q, k, stages)
 
 
@@ -718,6 +799,7 @@ def main() -> None:
     from cfgpp_tpu_torch.kernels import int8_matmul as tk
     from cfgpp_tpu_torch.models.quant import (quantize_conv_kernel_int8,
                                               quantize_kernel_int8)
+    from cfgpp_tpu_torch.utils import roofline as rl
 
     # the plain versions are f32 references: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -731,8 +813,8 @@ def main() -> None:
     print("phase 1 ok: every CUDA library built and loaded", flush=True)
 
     table = KernelTable(card)
-    phase_kernels(fa, tk, tc, quantize_kernel_int8, quantize_conv_kernel_int8,
-                  table)
+    phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
+                  quantize_conv_kernel_int8, table)
     print(f"phase 2 ok: {len(KERNEL_SOURCES)} kernels match their plain"
           f" versions at {sum(map(len, table.rows.values()))} shapes",
           flush=True)
@@ -777,9 +859,12 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches["all"][name],
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
-            "plain_ms": summary["plain_ms"],
+            "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
+            "bound_by": summary["bound_by"],
+            "library_ms": summary["library_ms"],
             "ms_per": "request: sum over the shapes of calls per request"
-                      " (in the slice that runs each) x time per call",
+                      " (in the slice that runs each) x time per call; the"
+                      " same for plain_ms, bound_ms and library_ms",
             "launches_by_path": {path: n[name] for path, n in launches.items()},
             "shapes": summary["shapes"]})
     print(json.dumps({"kernels": kernels, "quant_drift": drift}), flush=True)

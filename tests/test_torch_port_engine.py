@@ -113,7 +113,8 @@ def test_cli_slice_runs_without_jax(tmp_path):
         "      '--resolution', '16', '--prompt', 'a cat',\n"
         f"      '--workdir', {str(tmp_path)!r}])\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "             if m.split('.')[0] in ('cfgpp_tpu', 'jax', 'jaxlib',\n"
+        "                                 'flax'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -144,7 +145,8 @@ def test_cli_quant_dense_runs_without_jax(tmp_path):
         f"      '--workdir', {str(tmp_path)!r}])\n"
         "assert calls, 'no int8 projection ran'\n"
         "bad = sorted(mod for mod in sys.modules\n"
-        "             if mod.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "             if mod.split('.')[0] in ('cfgpp_tpu', 'jax', 'jaxlib',\n"
+        "                                 'flax'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -390,7 +390,8 @@ def test_cli_quant_all_runs_without_jax(tmp_path):
         f"      '--workdir', {str(tmp_path)!r}])\n"
         "assert calls['mm'] and calls['conv'], calls\n"
         "bad = sorted(mod for mod in sys.modules\n"
-        "             if mod.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "             if mod.split('.')[0] in ('cfgpp_tpu', 'jax', 'jaxlib',\n"
+        "                                 'flax'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
