@@ -22,6 +22,9 @@ from pathlib import Path
 from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+# One shared library per source ``csrc/<name>.cu``.
+LIBRARIES = ("flash_attention", "flash_attention_f32", "flash_attention_int8",
+             "int8_conv", "int8_matmul")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cfgpp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

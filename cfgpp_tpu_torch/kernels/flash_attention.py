@@ -2,12 +2,13 @@
 
 `flash_attention_hd` and `flash_attention_qkv_packed` are the counterparts
 of the functions of the same names in ``cfgpp_tpu/kernels/
-flash_attention.py``.  On a CUDA tensor they launch the hand-written Hopper
-kernel in ``cfgpp_tpu_torch/csrc/flash_attention.cu`` (built at first use,
-see `cfgpp_tpu_torch.kernels.build`); on a CPU tensor they compute
-`flash_attention_hd_reference` / `flash_attention_qkv_packed_reference`,
+flash_attention.py``.  On a CUDA tensor they launch a hand-written Hopper
+kernel (built at first use, see `cfgpp_tpu_torch.kernels.build`), chosen by
+the inputs' dtype: bf16 in ``cfgpp_tpu_torch/csrc/flash_attention.cu``, f32
+in ``cfgpp_tpu_torch/csrc/flash_attention_f32.cu``.  On a CPU tensor they
+compute `flash_attention_hd_reference` / `flash_attention_qkv_packed_reference`,
 the plain PyTorch versions of the same functions.  There is no fallback
-from the kernel: a tensor it does not take raises.
+from the kernels: a tensor they do not take raises.
 
 `flash_attention_hd_int8` and `flash_attention_qkv_packed_int8` are the
 int8-score counterparts (the score dot in int8, per-row q scales and one
@@ -19,9 +20,9 @@ where the quantized UNet's self-attention takes them: exactly where the
 JAX package's TPU route runs ``_kernel_single_int8``.
 
 ``launches``, ``packed_launches``, ``int8_launches`` and
-``packed_int8_launches`` count the kernel launches of this process, so a run
-can show that its attention went through the kernels (`reset_launches` sets
-them to 0).
+``packed_int8_launches`` count the kernel launches of this process (bf16
+and f32 alike for the first two), so a run can show that its attention went
+through the kernels (`reset_launches` sets them to 0).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Optional
 
 import torch
 
-HEAD_DIMS = (40, 64, 80, 160, 512)   # the kernel's instantiations (csrc)
+HEAD_DIMS = (40, 64, 80, 160, 512)   # the kernels' instantiations (csrc)
 INT8_HEAD_DIMS = (40, 64, 80, 160)   # the int8-score kernel's
 LOG2E = 1.4426950408889634
 
@@ -81,30 +82,57 @@ def flash_attention_hd_reference(q: torch.Tensor, k: torch.Tensor,
 
 @functools.cache
 def _lib():
+    return _load("flash_attention", "")
+
+
+@functools.cache
+def _lib_f32():
+    return _load("flash_attention_f32", "_f32")
+
+
+def _load(name: str, suffix: str) -> ctypes.CDLL:
     from cfgpp_tpu_torch.kernels.build import load_library
 
-    lib = load_library("flash_attention")
-    lib.cfgpp_flash_attention_hd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.cfgpp_flash_attention_qkv_packed.argtypes = (
+    lib = load_library(name)
+    hd = getattr(lib, f"cfgpp_flash_attention_hd{suffix}")
+    packed = getattr(lib, f"cfgpp_flash_attention_qkv_packed{suffix}")
+    hd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    packed.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.cfgpp_flash_attention_hd.restype = ctypes.c_int
-    lib.cfgpp_flash_attention_qkv_packed.restype = ctypes.c_int
+    hd.restype = packed.restype = ctypes.c_int
     return lib
 
 
-def _check_kernel_inputs(num_heads: int, hd: int, **tensors) -> int:
+# Suffix of the C entry points' names by input dtype.
+_KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def _check_kernel_inputs(num_heads: int, hd: int,
+                         dtypes=tuple(_KERNEL_DTYPES), **tensors) -> int:
+    """The kernels' conditions: D in `HEAD_DIMS`; every tensor on one device
+    with one dtype out of ``dtypes``, contiguous and 16-byte aligned."""
     d = hd // num_heads
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
-    dev = next(iter(tensors.values())).device
+    first = next(iter(tensors.values()))
+    dev, dt = first.device, first.dtype
+    if dt not in dtypes:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise ValueError(f"{next(iter(tensors))}: expected {names} on {dev}, "
+                         f"got {dt}")
     for name, t in tensors.items():
-        if t.device != dev or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: expected bf16 on {dev}, got "
-                             f"{t.dtype} on {t.device}")
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name}: expected {dt} on {dev} like the other "
+                             f"inputs, got {t.dtype} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     return d
+
+
+def _entry(dtype, name: str):
+    """The C entry point ``name`` of the kernel library for ``dtype``."""
+    lib = _lib() if dtype == torch.bfloat16 else _lib_f32()
+    return getattr(lib, f"cfgpp_{name}{_KERNEL_DTYPES[dtype]}")
 
 
 def _launch_kernel(q, k, v, num_heads: int, n: int) -> torch.Tensor:
@@ -113,7 +141,7 @@ def _launch_kernel(q, k, v, num_heads: int, n: int) -> torch.Tensor:
     b, nq, _ = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().cfgpp_flash_attention_hd(
+        err = _entry(q.dtype, "flash_attention_hd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, nq, k.shape[1], num_heads, d, n, stream)
     if err:
@@ -131,7 +159,8 @@ def flash_attention_hd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Nq, H*D], k/v: [B, Nkv, H*D] -> [B, Nq, H*D].  Non-causal.
 
     ``kv_len``: the valid kv rows when k/v arrive padded; rows at or past
-    it are masked.  CUDA tensors must be bf16 with D in `HEAD_DIMS`."""
+    it are masked.  CUDA tensors must be all bf16 or all f32, with D in
+    `HEAD_DIMS`; the output has their dtype."""
     n = _check_shapes(q, k, v, num_heads, kv_len)
     if q.device.type == "cpu":
         return flash_attention_hd_reference(q, k, v, num_heads, kv_len)
@@ -171,7 +200,7 @@ def flash_attention_qkv_packed(qkv: torch.Tensor,
     out = torch.empty((b, n, hd), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().cfgpp_flash_attention_qkv_packed(
+        err = _entry(qkv.dtype, "flash_attention_qkv_packed")(
             qkv.data_ptr(), out.data_ptr(), b, n, num_heads, d, stream)
     if err:
         raise RuntimeError(f"flash_attention_qkv_packed kernel launch failed: "
@@ -321,7 +350,8 @@ def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
     b, nq, hd = q.shape
     nkv = k.shape[1]
     tensors = {"q": q, "k": k, "v": v} if qkv is None else {"qkv": qkv}
-    d = _check_kernel_inputs(num_heads, hd, **tensors)
+    d = _check_kernel_inputs(num_heads, hd, dtypes=(torch.bfloat16,),
+                             **tensors)
     if d not in INT8_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in the int8 kernel's "
                          f"{INT8_HEAD_DIMS}")

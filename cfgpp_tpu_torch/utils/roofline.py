@@ -2,11 +2,12 @@
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
-its tensor-core operations over the peak rate of their type.  Operations are
-the products' multiply-adds counted as two; a softmax's exponentials and a
+its operations over the peak rate of their type.  Operations are the
+products' multiply-adds counted as two; a softmax's exponentials and a
 quantizer's divisions are not counted.  The peaks are NVIDIA's H100 SXM data
 sheet, dense (no sparsity), at the card's full 700 W power limit: 989
-TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s of HBM3.
+TFLOP/s bf16 and 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32 on
+the CUDA cores (the f32 attention's products), 3.35 TB/s of HBM3.
 
 Pure arithmetic on shapes: `chip_smoke.py` puts a bound beside every time it
 measures, and the CPU tests check the counts.  The port's kernels never
@@ -19,6 +20,7 @@ import dataclasses
 
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
 
 BF16, INT8, F32 = 2, 1, 4   # bytes per element
@@ -28,11 +30,13 @@ BF16, INT8, F32 = 2, 1, 4   # bytes per element
 class Work:
     bf16_flops: int = 0     # bf16 tensor-core operations
     int8_ops: int = 0       # int8 tensor-core operations
+    f32_flops: int = 0      # f32 operations on the CUDA cores
     bytes: int = 0          # device-memory bytes that must move
 
     def compute_ms(self) -> float:
         return (self.bf16_flops / BF16_FLOPS_PER_S
-                + self.int8_ops / INT8_OPS_PER_S) * 1e3
+                + self.int8_ops / INT8_OPS_PER_S
+                + self.f32_flops / F32_FLOPS_PER_S) * 1e3
 
     def memory_ms(self) -> float:
         return self.bytes / BYTES_PER_S * 1e3
@@ -52,6 +56,14 @@ def flash_attention(batch: int, nq: int, kv_len: int, heads: int,
     return Work(
         bf16_flops=4 * batch * heads * nq * kv_len * head_dim,
         bytes=BF16 * batch * hd * (2 * nq + 2 * kv_len))
+
+
+def flash_attention_f32(batch: int, nq: int, kv_len: int, heads: int,
+                        head_dim: int) -> Work:
+    """`flash_attention` in f32: the same operations on the CUDA cores, and
+    twice the bytes."""
+    bf16 = flash_attention(batch, nq, kv_len, heads, head_dim)
+    return Work(f32_flops=bf16.bf16_flops, bytes=bf16.bytes * F32 // BF16)
 
 
 def flash_attention_int8(batch: int, nq: int, kv_len: int, heads: int,

@@ -10,11 +10,12 @@ Phases, one status line each; any failure exits non-zero:
    every CUDA library from the sources in this checkout (one nvcc per
    source, all started together).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
-   slices give it (bf16 inputs from a seed), with the tolerance stated; both
-   times per call beside the work's bound on the card
-   (``cfgpp_tpu_torch/utils/roofline.py``) and, for the bf16 attention, the
-   time of ``scaled_dot_product_attention`` on the same inputs and the
-   backend that served it: flash_attention_hd, flash_attention_qkv_packed,
+   slices give it (bf16 inputs from a seed; the f32 attention kernel at the
+   same shapes in f32), with the tolerance stated; both times per call
+   beside the work's bound on the card (``cfgpp_tpu_torch/utils/
+   roofline.py``) and, for the attention, the time of
+   ``scaled_dot_product_attention`` on the same inputs and the backend that
+   served it: flash_attention_hd, flash_attention_qkv_packed (bf16 and f32),
    int8_matmul (every mode the int8 slice uses, and the affine prologue at a
    level-1 shape), int8_ff_geglu, int8_conv3x3 (the four SD-1.5 sites of
    ``--quant all``, and the GroupNorm prologue with the residual) and the
@@ -39,7 +40,11 @@ Phases, one status line each; any failure exits non-zero:
    phase 4 plus int8 resnet and upsampler convs and the int8-score
    self-attention where the JAX route takes them).  The same checks, with
    the launches of all seven kernel entry points per request.
-6. summary: a JSON line of the kernels, then the result line
+6. f32: the VAE encode of a 512^2 image (f32 by design) and one UNet call
+   of an f32 bundle at 512^2 (``--dtype float32``), each with the f32
+   attention kernel against the same modules with the plain attention, and
+   the kernel's launches in each.
+7. summary: a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
@@ -81,6 +86,10 @@ ROOT = Path(__file__).resolve().parent
 # On the H100 the LayerNorm cases read at most 1.5e-6 of the int8 values
 # flipped and 3.5e-4 of the outputs beyond one ulp.
 KERNEL_REL_TOL = 2e-2
+# - f32 attention: f32 all the way on both sides, so only the summation order
+#   and exp2 against exp differ: max |kernel - plain| <= F32_REL_TOL x
+#   max |plain| ("f32").
+F32_REL_TOL = 1e-4
 ULP_SHARE = 1e-3
 LN_FLIP_SHARE = 1e-4
 SX_REL_TOL = 1e-6
@@ -102,6 +111,9 @@ INT8_MODEL_REL_L2_TOL = 4e-2
 # reads 9.0-9.5e-2 and 7-bit activations 8.4-8.9e-2.  The bound sits
 # between them.
 INT8_ALL_MODEL_REL_L2_TOL = 6.5e-2
+# The f32 models with the f32 kernel against the plain attention: a bf16
+# route reads about 1e-2 there, so this bound tells the two apart.
+F32_MODEL_REL_L2_TOL = 1e-3
 
 NFE = 50
 GUIDANCE = 0.6
@@ -111,6 +123,9 @@ PROMPTS = ("a photograph of an astronaut riding a horse",
            "a watercolor painting of a lighthouse at dusk")
 UNET_SITES_PER_CALL = 32      # 16 transformer blocks x (self + cross)
 LAUNCHES_PER_REQUEST = UNET_SITES_PER_CALL * NFE + 1   # + the VAE mid-block
+# The f32 path's attention launches: one UNet call runs every transformer
+# site through flash_attention_hd (16 self, 16 cross), the encoder one.
+F32_LAUNCHES = {"vae encode": 1, "unet eps": UNET_SITES_PER_CALL}
 # The int8 slice, per request (16 transformer blocks, one per transformer):
 # int8_matmul: to_qkv, attn1 to_out, to_q, attn2 to_out, proj_in, proj_out
 # per block and UNet call, + the cross k/v of every block once per request;
@@ -255,7 +270,7 @@ def beyond_one_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def build_all(build) -> None:
     """One nvcc per CUDA source, all started together."""
-    names = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
+    names = build.LIBRARIES
     with ThreadPoolExecutor(len(names)) as pool:
         results = list(pool.map(build.build_library, names))
     for name, res in zip(names, results):
@@ -305,7 +320,8 @@ class KernelTable:
 
     def measure(self, kernel_name, site, desc, kernel, ref, plain, calls,
                 work, rule="rel", library=None, others=None):
-        """``rule``: "rel", "exact" or "ulp" (see the tolerances above).
+        """``rule``: "rel", "f32", "exact" or "ulp" (see the tolerances
+        above).
         ``work``: the `roofline.Work` of one call.  ``library``: the one
         PyTorch call that computes the same function, timed beside the
         kernel (never used by the port).  ``others``: {name: fn} of further
@@ -324,8 +340,8 @@ class KernelTable:
             tol = (f"beyond one bf16 ulp {off:.2e} of elements, tol {ULP_SHARE};"
                    f" max tol {KERNEL_REL_TOL} x {scale:.3e}")
         else:
-            ok, tol = ok and err <= KERNEL_REL_TOL * scale, \
-                f"tol {KERNEL_REL_TOL} x {scale:.3e}"
+            rel = F32_REL_TOL if rule == "f32" else KERNEL_REL_TOL
+            ok, tol = ok and err <= rel * scale, f"tol {rel} x {scale:.3e}"
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
         bound_ms = work.bound_ms()
@@ -496,6 +512,39 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
             rl.flash_attention(b, n, n, heads, c3 // 3 // heads),
             library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
 
+    for site, (b, n, c), nkv, heads, kv_len, calls in ATTENTION_CASES:
+        q, k, v = (randn(*shape)
+                   for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
+        rows = nkv if kv_len is None else kv_len
+        qh, kh, vh = (sdpa_heads(x, heads, r)
+                      for x, r in ((q, n), (k, rows), (v, rows)))
+        table.measure(
+            "flash_attention_hd_f32", site,
+            f"q {[b, n, c]} f32 kv {nkv} heads {heads} d {c // heads} kv_len"
+            f" {kv_len}",
+            lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len),
+            lambda: fa.flash_attention_hd_reference(q, k, v, heads,
+                                                    kv_len=kv_len),
+            lambda: fa.flash_attention_hd_reference(q, k, v, heads,
+                                                    kv_len=kv_len), calls,
+            rl.flash_attention_f32(b, n, rows, heads, c // heads), rule="f32",
+            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
+    for site, shape, heads, _ in PACKED_CASES:
+        qkv = randn(*shape)
+        b, n, c3 = shape
+        qh, kh, vh = (sdpa_heads(x, heads, n)
+                      for x in qkv.split(c3 // 3, dim=2))
+        table.measure(
+            "flash_attention_qkv_packed_f32", site,
+            f"qkv {list(shape)} f32 heads {heads} d {c3 // 3 // heads}",
+            lambda: fa.flash_attention_qkv_packed(qkv, heads),
+            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads),
+            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), 0,
+            rl.flash_attention_f32(b, n, n, heads, c3 // 3 // heads),
+            rule="f32",
+            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
     def weights(k, n):
         wq, ws = quantize_kernel_int8(randn(n, k, scale=k ** -0.5))
         return wq, ws, randn(n, scale=0.1)
@@ -637,6 +686,55 @@ def phase_models_vs_plain_attention(engine, fa) -> None:
         check(err <= MODEL_REL_L2_TOL, f"{what}: kernel path disagrees")
 
 
+def phase_f32(fa, card: str) -> dict:
+    """An f32 bundle: the VAE encode of a 512^2 image and one UNet call at
+    512^2 (batch 2B = 2), each with the f32 kernel (its launches counted
+    from 0) and with the plain attention in its place.  Returns the
+    launches."""
+    from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+    from cfgpp_tpu_torch.models import attention
+    from cfgpp_tpu_torch.models.unet import precompute_cross_kv
+
+    bundle = ModelBundle.random_init("sd15", seed=0, dtype=torch.float32,
+                                     device="cuda")
+    engine = DiffusionEngine(bundle, "ddim_cfg++", nfe=NFE)
+    unet, vae = bundle.unet, bundle.vae
+    z, ctx, t = unet_inputs(engine)
+    check(z.dtype == ctx.dtype == torch.float32, "f32 bundle: inputs not f32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    img = torch.rand((1, RESOLUTION, RESOLUTION, 3), generator=gen,
+                     device="cuda") * 2.0 - 1.0
+    runs = {"vae encode": lambda: torch.cat(vae.encode(img), dim=-1),
+            "unet eps": lambda: unet(z, t, ctx,
+                                     cross_kv=precompute_cross_kv(unet, ctx))}
+    launches = 0
+    for what, run in runs.items():
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = fa.launches
+        with mock.patch.object(attention, "flash_attention_hd",
+                               fa.flash_attention_hd_reference), \
+                torch.inference_mode():
+            want = run()
+        err = rel_l2(got, want)
+        print(f"  f32 {what}: {tuple(got.shape)} {got.dtype} in {seconds:.3f}"
+              f" s, {n} f32 kernel launches; kernel vs plain attention rel_l2"
+              f" {err:.3e} (tol {F32_MODEL_REL_L2_TOL}) [{card}]", flush=True)
+        check(got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()), f"f32 {what}: output")
+        check(n == F32_LAUNCHES[what], f"f32 {what}: {n} launches, expected"
+              f" {F32_LAUNCHES[what]}")
+        check(err <= F32_MODEL_REL_L2_TOL, f"f32 {what}: kernel path disagrees")
+        launches += n
+    return {"flash_attention_hd_f32": launches,
+            "flash_attention_qkv_packed_f32": fa.packed_launches}
+
+
 def plain_kernels(fa, tk, tc):
     """Every kernel wrapper of the UNet's modules patched to its plain
     version."""
@@ -763,22 +861,32 @@ def phase_quant_drift(engine, engine_q, label: str) -> float:
     return worst
 
 
+# name: (source, the TPU kernel it replaces, the path whose run counts its
+# launches).
 KERNEL_SOURCES = {
     "flash_attention_hd": ("cfgpp_tpu_torch/csrc/flash_attention.cu",
-                           "cfgpp_tpu/kernels/flash_attention.py:378"),
+                           "cfgpp_tpu/kernels/flash_attention.py:378", "all"),
     "flash_attention_qkv_packed": ("cfgpp_tpu_torch/csrc/flash_attention.cu",
-                                   "cfgpp_tpu/kernels/flash_attention.py:614"),
+                                   "cfgpp_tpu/kernels/flash_attention.py:614",
+                                   "all"),
+    "flash_attention_hd_f32": ("cfgpp_tpu_torch/csrc/flash_attention_f32.cu",
+                               "cfgpp_tpu/kernels/flash_attention.py:378",
+                               "f32"),
+    "flash_attention_qkv_packed_f32": (
+        "cfgpp_tpu_torch/csrc/flash_attention_f32.cu",
+        "cfgpp_tpu/kernels/flash_attention.py:614", "f32"),
     "flash_attention_hd_int8": ("cfgpp_tpu_torch/csrc/flash_attention_int8.cu",
-                                "cfgpp_tpu/kernels/flash_attention.py:470"),
+                                "cfgpp_tpu/kernels/flash_attention.py:470",
+                                "all"),
     "flash_attention_qkv_packed_int8": (
         "cfgpp_tpu_torch/csrc/flash_attention_int8.cu",
-        "cfgpp_tpu/kernels/flash_attention.py:544"),
+        "cfgpp_tpu/kernels/flash_attention.py:544", "all"),
     "int8_matmul": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
-                    "cfgpp_tpu/kernels/int8_matmul.py:163"),
+                    "cfgpp_tpu/kernels/int8_matmul.py:163", "all"),
     "int8_ff_geglu": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
-                      "cfgpp_tpu/kernels/int8_matmul.py:305"),
+                      "cfgpp_tpu/kernels/int8_matmul.py:305", "all"),
     "int8_conv3x3": ("cfgpp_tpu_torch/csrc/int8_conv.cu",
-                     "cfgpp_tpu/kernels/int8_conv.py:225"),
+                     "cfgpp_tpu/kernels/int8_conv.py:225", "all"),
 }
 
 
@@ -851,13 +959,19 @@ def main() -> None:
     drift["all"] = phase_quant_drift(engine, engine_a, "int8-all")
     print("phase 5 ok: SD-1.5 ddim_cfg++ int8-all (--quant all) slice,"
           " 3 requests", flush=True)
+    del engine_a, engine, bundle
+    torch.cuda.empty_cache()
+
+    launches["f32"] = phase_f32(fa, card)
+    print("phase 6 ok: f32 VAE encode and UNet call on the f32 attention"
+          " kernel", flush=True)
 
     kernels = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
+    for name, (source, replaces, path) in KERNEL_SOURCES.items():
         summary = table.summary(name)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches["all"][name],
+            "replaces": replaces, "launches": launches[path][name],
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
             "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"],
@@ -865,7 +979,8 @@ def main() -> None:
             "ms_per": "request: sum over the shapes of calls per request"
                       " (in the slice that runs each) x time per call; the"
                       " same for plain_ms, bound_ms and library_ms",
-            "launches_by_path": {path: n[name] for path, n in launches.items()},
+            "launches_by_path": {path: n[name] for path, n in launches.items()
+                                 if name in n},
             "shapes": summary["shapes"]})
     print(json.dumps({"kernels": kernels, "quant_drift": drift}), flush=True)
     print(json.dumps({"ok": True, "device": {
