@@ -211,11 +211,14 @@ class QuantConv(_Int8Layer):
         return self._dequant_conv(x, gn_scale, gn_bias, residual)
 
     def _dequant_conv(self, x, gn_scale, gn_bias, residual) -> torch.Tensor:
-        """``cfgpp_tpu/models/quant.py:113-144``: the prologue in f32, one
-        conv of x in its dtype with the dequantized weights, then + bias and
-        + residual in f32.  On the card cuDNN accumulates in f32 and writes
-        bf16, so the sum is rounded once more there than in the JAX conv
-        (``preferred_element_type=f32``)."""
+        """``cfgpp_tpu/models/quant.py:113-144``: the prologue in f32, the
+        weights dequantized and rounded to x's dtype, one conv whose sum
+        stays f32, then + bias and + residual in f32 and one rounding to x's
+        dtype, as the JAX conv's ``preferred_element_type=f32``.  The conv
+        runs on f32 copies of x and the weights: a bf16 conv would round its
+        sum to bf16 first.  On the card cuDNN's default TF32 for f32 convs
+        keeps this exact: a bf16 value is exact in TF32, so every product is
+        exact and the sum is taken in f32."""
         dt = x.dtype
         if gn_scale is not None:
             xf = x.float() * gn_scale.float()[:, :, None, None] \
@@ -223,7 +226,7 @@ class QuantConv(_Int8Layer):
             x = (xf * torch.sigmoid(xf)).to(dt)
         wf = (self.weight.float() * self.weight_scale[:, None, None, None]
               ).to(dt).permute(0, 3, 1, 2)
-        y = F.conv2d(x, wf, padding=1).float()
+        y = F.conv2d(x.float(), wf.float(), padding=1)
         if self.bias is not None:
             y = y + self.bias[:, None, None]
         if residual is not None:
