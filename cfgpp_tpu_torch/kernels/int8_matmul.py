@@ -209,22 +209,27 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _f32(t: Optional[torch.Tensor], dev, shape, name) -> Optional[torch.Tensor]:
-    """Small per-channel parameters go to the kernel as contiguous f32."""
+    """Small per-channel parameters go to the kernel as contiguous f32,
+    8-byte aligned (the kernels read them two at a time)."""
     if t is None:
         return None
     if t.device != dev or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected {tuple(shape)} on {dev}, got "
                          f"{tuple(t.shape)} on {t.device}")
-    return t.float().contiguous()
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
 def _rows(t: torch.Tensor, dev, width: int, name: str) -> torch.Tensor:
-    """An activation as contiguous bf16 rows [M, width] on ``dev``."""
+    """An activation as contiguous, 16-byte aligned bf16 rows [M, width] on
+    ``dev`` (the kernels read the residual two elements at a time)."""
     if t.device != dev or t.dtype != torch.bfloat16:
         raise ValueError(f"{name}: expected bf16 on {dev}, got {t.dtype} on "
                          f"{t.device}")
     t = t.reshape(-1, width)
-    return t if t.is_contiguous() else t.contiguous()
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _kernel_args(x, w_q, ln_scale, ln_bias, affine_scale, affine_bias,
@@ -236,8 +241,8 @@ def _kernel_args(x, w_q, ln_scale, ln_bias, affine_scale, affine_bias,
     if k % 16 or n % 16:
         raise ValueError(f"the kernel takes K and N in multiples of 16; got "
                          f"K={k}, N={n}")
-    if w_q.device != dev or not w_q.is_contiguous():
-        raise ValueError(f"w_q must be contiguous on {dev}")
+    if w_q.device != dev or not w_q.is_contiguous() or w_q.data_ptr() % 16:
+        raise ValueError(f"w_q must be contiguous and 16-byte aligned on {dev}")
     x2 = _rows(x, dev, k, "x")
     mode, g, b, per = None, None, None, 0
     if ln_scale is not None:
@@ -367,9 +372,11 @@ def int8_ff_geglu_stages(x: torch.Tensor, w1_q: torch.Tensor,
         x, w1_q, ln_scale, ln_bias, None, None, out_dtype)
     n2, k = w1_q.shape
     o, n = w2_q.shape
-    if n % 16 or o % 16 or not w2_q.is_contiguous() or w2_q.device != dev:
-        raise ValueError(f"w2_q must be contiguous on {dev} with N, O in "
-                         f"multiples of 16; got {tuple(w2_q.shape)}")
+    if (n % 16 or o % 16 or not w2_q.is_contiguous() or w2_q.device != dev
+            or w2_q.data_ptr() % 16):
+        raise ValueError(f"w2_q must be contiguous and 16-byte aligned on "
+                         f"{dev} with N, O in multiples of 16; got "
+                         f"{tuple(w2_q.shape)}")
     m = x2.shape[0]
     s1 = _f32(w1_scale, dev, (n2,), "w1_scale")
     b1 = _f32(bias1, dev, (n2,), "bias1")

@@ -24,6 +24,8 @@ Phases, one status line each; any failure exits non-zero:
    attention: q and k) and scales against the plain quantizers, the
    feed-forward's f32 hidden state and its requantize, and each GEMM and
    epilogue against the plain one run from the kernel's own int8 values.
+   Beside the int8 GEMMs, ``torch._int_mm`` on the same int8 operands times
+   the bare int8 product as a yardstick for the GEMM core.
 3. exact slice: SD-1.5 ``ddim_cfg++``, lambda=0.6, 50 NFE, 512^2, random
    weights from seed 0, bf16, three requests of batch 1 through
    ``DiffusionEngine.sample``.  Checks the images, the kernel launch count
@@ -187,10 +189,13 @@ INT8_MATMUL_CASES = [
         (f"{lvl} proj_in", (2, n, c), c, "bias", blocks * NFE))
 ] + [(f"{lvl} cross k/v", (2, 77, 768), c, "none", 2 * blocks)
      for lvl, _, c, blocks in LEVELS] + [
-    ("L1 affine prologue", (2, 1024, 640), 640, "affine", 0)]
+    ("L1 affine prologue", (2, 1024, 640), 640, "affine", 0),
+    ("edges: M 100, K 80, N 48 (not on the path)", (1, 100, 80), 48,
+     "bias_res", 0)]
 # (site, x shape, calls per request) for int8_ff_geglu: N = 4C, O = C.
 INT8_FF_CASES = [(f"{lvl} ff", (2, n, c), blocks * NFE)
-                 for lvl, n, c, blocks in LEVELS]
+                 for lvl, n, c, blocks in LEVELS] + [
+    ("edges: M 100, C 80 (not on the path)", (1, 100, 80), 0)]
 # (site, packed qkv shape, heads, calls per request)
 PACKED_CASES = [(f"unet {lvl} self packed", (2, n, 3 * c), 8, blocks * NFE)
                 for lvl, n, c, blocks in LEVELS]
@@ -325,7 +330,9 @@ class KernelTable:
         ``work``: the `roofline.Work` of one call.  ``library``: the one
         PyTorch call that computes the same function, timed beside the
         kernel (never used by the port).  ``others``: {name: fn} of further
-        routes to time beside them."""
+        routes to time beside them (e.g. ``int8_product_cublaslt``: the bare
+        int8 products of the int8 rows on ``torch._int_mm``, a yardstick for
+        the GEMM core, not the function's library time)."""
         out = kernel()
         torch.cuda.synchronize()
         want = ref()
@@ -566,12 +573,15 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
         work = rl.int8_matmul(b * t, k, n, ln=mode == "ln",
                               bias="bias" in kw, residual="residual" in kw,
                               affine=b if mode == "affine" else 0)
+        xq = tk.int8_matmul_stages(x, wq, ws, **kw)[1].reshape(-1, k)
         table.measure(
             "int8_matmul", site, f"x {[b, t, k]} N {n} {mode}",
             lambda: tk.int8_matmul(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw), calls, work,
-            rule="ulp" if mode == "ln" else "exact")
+            rule="ulp" if mode == "ln" else "exact",
+            others={"int8_product_cublaslt": lambda: torch._int_mm(xq,
+                                                                   wq.t())})
         check_matmul_stages(tk, site, x, wq, ws, kw)
 
     for site, (b, t, c), calls in INT8_FF_CASES:
@@ -582,12 +592,16 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
                   ln_bias=randn(c, scale=0.1),
                   residual=randn(b, t, c).bfloat16())
         args = (x, w1q, w1s, b1, w2q, w2s, b2)
+        _, xq, _, _, hq, _ = tk.int8_ff_geglu_stages(*args, **kw)
+        xq, hq = xq.reshape(-1, c), hq.reshape(-1, 4 * c)
         table.measure(
             "int8_ff_geglu", site, f"x {[b, t, c]} N {4 * c} O {c} ln res",
             lambda: tk.int8_ff_geglu(*args, **kw),
             lambda: tk.int8_ff_geglu_reference(*args, **kw),
             lambda: tk.int8_ff_geglu_reference(*args, **kw), calls,
-            rl.int8_ff_geglu(b * t, c), rule="ulp")
+            rl.int8_ff_geglu(b * t, c), rule="ulp",
+            others={"int8_product_cublaslt": lambda: (
+                torch._int_mm(xq, w1q.t()), torch._int_mm(hq, w2q.t()))})
         check_ff_stages(tk, site, args, kw)
 
     for site, (b, h, w, c), o, gn, res, br, calls in CONV_CASES:
