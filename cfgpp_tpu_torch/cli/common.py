@@ -34,9 +34,9 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
     parser.add_argument("--resolution", type=int, default=None)
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=("bfloat16", "float32"),
-                        help="float32 runs the exact path on the card too "
-                             "(its own f32 attention kernel); --quant "
-                             "takes bfloat16 on the card")
+                        help="float32 runs on the card too: the f32 "
+                             "attention kernel, and with --quant the int8 "
+                             "kernels on f32 activations")
     parser.add_argument("--quant", type=str, default=None,
                         choices=("dense", "all"),
                         help="opt-in int8 W8A8 UNet (numerics differ from "
@@ -49,10 +49,6 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
 
 def build_engine(args) -> DiffusionEngine:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    if (args.quant and dtype == torch.float32
-            and torch.device(args.device).type == "cuda"):
-        raise ValueError("--quant needs --dtype bfloat16 on a CUDA device: the "
-                         "int8 kernels take bf16 activations only")
     bundle = ModelBundle.random_init(args.model, seed=0, dtype=dtype,
                                      device=args.device)
     if args.quant:

@@ -1,4 +1,5 @@
-// Int8-score flash-attention forward for Hopper (sm_90a), bf16 in and out.
+// Int8-score flash-attention forward for Hopper (sm_90a), bf16 or f32 in and
+// out.
 //
 // Replaces the Pallas TPU kernels cfgpp_tpu/kernels/flash_attention.py:
 // flash_attention_hd_int8 and flash_attention_qkv_packed_int8, both with the
@@ -8,7 +9,11 @@
 // clipped to +-127; an int8 q k^T with int32 accumulation; the scores
 // s = acc * (sq * (sk * q_scale)) with q_scale = d^-1/2 * log2(e) (so the
 // softmax runs on exp2), kv columns at or past kv_len masked; p rounded to
-// bf16 before a bf16 p@v with f32 accumulation; out = (p@v) / max(l, 1e-37).
+// v's dtype before p@v with f32 accumulation; out = (p@v) / max(l, 1e-37).
+// With bf16 activations p@v runs on bf16 wmma fragments; with f32 ones (the
+// `_f32` entry points, as the TPU kernel takes f32) p is not rounded and
+// p@v is an f32 FFMA micro-tile product (`pv_f32`): a TF32 or bf16 product
+// would round p and v.
 // The TPU kernel takes the whole kv sequence in one block and subtracts no
 // max; this kernel streams 64-row kv tiles with a running max, which is the
 // same softmax in real arithmetic and differs only in rounding.  The
@@ -57,22 +62,25 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAmaxThreads = 256;
 
-template <int D, int BQ, int BKV>
+// T: the activations' type (bf16, or f32 for the `_f32` entry points); v
+// and p are held in it.
+template <int D, int BQ, int BKV, typename T>
 struct Plan {
   static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the mma depth
   static constexpr int NP = DP / 16;             // 16-byte k planes
   static constexpr int QPLANE = BQ * 16 + 32;    // int8 q plane, 32-byte skew
   static constexpr int KPLANE = BKV * 16 + 32;   // int8 k plane
-  static constexpr int LDH = DP + 8;             // v tile, bf16
+  static constexpr int PAD = sizeof(T) == 2 ? 8 : 4;   // 16 bytes of skew
+  static constexpr int LDH = DP + PAD;           // v tile
   static constexpr int LDS = BKV + 8;            // int32 scores
-  static constexpr int LDP = BKV + 8;            // probabilities, bf16
+  static constexpr int LDP = BKV + PAD;          // probabilities
   static constexpr int LDO = DP + 4;             // output accumulator, f32
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + size_t(NP) * QPLANE;
   static constexpr size_t v_off = k_off + size_t(NP) * KPLANE;
-  static constexpr size_t s_off = v_off + size_t(BKV) * LDH * sizeof(bf16);
+  static constexpr size_t s_off = v_off + size_t(BKV) * LDH * sizeof(T);
   static constexpr size_t p_off = s_off + size_t(BQ) * LDS * sizeof(int);
-  static constexpr size_t o_off = p_off + size_t(BQ) * LDP * sizeof(bf16);
+  static constexpr size_t o_off = p_off + size_t(BQ) * LDP * sizeof(T);
   static constexpr size_t m_off = o_off + size_t(BQ) * LDO * sizeof(float);
   static constexpr size_t l_off = m_off + size_t(BQ) * sizeof(float);
   static constexpr size_t sq_off = l_off + size_t(BQ) * sizeof(float);
@@ -99,10 +107,45 @@ __device__ __forceinline__ int8_t quantize(float v, float inv) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
 }
 
+// Eight consecutive activations (16- or 32-byte aligned) as f32.
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 t = __bfloat1622float2(h[j]);
+    f[2 * j] = t.x;
+    f[2 * j + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Eight consecutive elements copied (v tile rows: 16 bytes of bf16, 32 of
+// f32), or zeros.
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, bool ok) {
+  *reinterpret_cast<uint4*>(dst) =
+      ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
+}
+__device__ __forceinline__ void copy8(float* dst, const float* src, bool ok) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  reinterpret_cast<float4*>(dst)[0] = ok ? reinterpret_cast<const float4*>(src)[0] : z;
+  reinterpret_cast<float4*>(dst)[1] = ok ? reinterpret_cast<const float4*>(src)[1] : z;
+}
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+
 // |k| max over the kv rows of one (batch, head), split over gridDim.y blocks.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kAmaxThreads)
-k_absmax(const bf16* __restrict__ k, unsigned* __restrict__ amax, int nkv,
+k_absmax(const T* __restrict__ k, unsigned* __restrict__ amax, int nkv,
          int heads, int64_t ldkv) {
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
@@ -110,18 +153,15 @@ k_absmax(const bf16* __restrict__ k, unsigned* __restrict__ amax, int nkv,
   const int64_t items = int64_t(nkv) * kGroups;
   const int64_t i0 = items * blockIdx.y / gridDim.y;
   const int64_t i1 = items * (blockIdx.y + 1) / gridDim.y;
-  const bf16* kg = k + int64_t(b) * nkv * ldkv + int64_t(h) * D;
+  const T* kg = k + int64_t(b) * nkv * ldkv + int64_t(h) * D;
   float m = 0.f;
   for (int64_t i = i0 + threadIdx.x; i < i1; i += kAmaxThreads) {
     const int64_t r = i / kGroups;
     const int c = int(i % kGroups) * 8;
-    const uint4 u = *reinterpret_cast<const uint4*>(kg + r * ldkv + c);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+    float f[8];
+    load8(kg + r * ldkv + c, f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 t = __bfloat1622float2(p[j]);
-      m = fmaxf(m, fmaxf(fabsf(t.x), fabsf(t.y)));
-    }
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
   }
   __shared__ float red[kAmaxThreads / 32];
   m = warp_max(m);
@@ -134,6 +174,58 @@ k_absmax(const bf16* __restrict__ k, unsigned* __restrict__ amax, int nkv,
   }
 }
 
+// os += p v for f32 p and v (the `_f32` entry points): the TPU kernel rounds
+// p to v's dtype, a no-op in f32, so the product stays f32 on the CUDA cores
+// (a bf16 wmma would round both operands).  Each thread holds a register
+// micro-tile of TM rows x NC float4 column chunks; per kv row it reads one
+// float4 of v per chunk and feeds it to TM rows, and p four kv rows at a
+// time (a float4 per row).
+template <int BQ, int BKV, int DP, int LDP, int LDH, int LDO>
+__device__ __forceinline__ void pv_f32(const float* ps, const float* vs,
+                                       float* os) {
+  constexpr int CL = 4, RG = kThreads / CL, TM = BQ / RG, NC = DP / 4 / CL;
+  static_assert(BQ % RG == 0 && (DP / 4) % CL == 0 && BKV % 4 == 0,
+                "p v micro-tile");
+  const int cl = threadIdx.x % CL, rg = threadIdx.x / CL;
+  float4 acc[TM][NC];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      acc[m][n] = *reinterpret_cast<const float4*>(
+          os + (rg + RG * m) * LDO + 4 * (cl + CL * n));
+#pragma unroll 2
+  for (int j = 0; j < BKV; j += 4) {
+    float4 p[TM];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+      p[m] = *reinterpret_cast<const float4*>(ps + (rg + RG * m) * LDP + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + (j + jj) * LDH + 4 * (cl + CL * n));
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const float pm = jj == 0 ? p[m].x : jj == 1 ? p[m].y
+                           : jj == 2 ? p[m].z : p[m].w;
+          acc[m][n].x = fmaf(pm, vv.x, acc[m][n].x);
+          acc[m][n].y = fmaf(pm, vv.y, acc[m][n].y);
+          acc[m][n].z = fmaf(pm, vv.z, acc[m][n].z);
+          acc[m][n].w = fmaf(pm, vv.w, acc[m][n].w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      *reinterpret_cast<float4*>(os + (rg + RG * m) * LDO + 4 * (cl + CL * n)) =
+          acc[m][n];
+}
+
 // Stage-check outputs, each null unless the stages entry point asked.
 struct Stages {
   int8_t* qq;   // [B, Nq, H*D]
@@ -142,20 +234,20 @@ struct Stages {
   float* sk;    // [B, H]
 };
 
-template <int D, int BQ, int BKV>
+template <int D, int BQ, int BKV, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_int8(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_int8(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
                const unsigned* __restrict__ kamax, Stages st, int nq, int nkv,
                int heads, int kv_len, float q_scale, int64_t ldq, int64_t ldkv) {
-  using P = Plan<D, BQ, BKV>;
+  using P = Plan<D, BQ, BKV, T>;
   constexpr int DP = P::DP;
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* qs = reinterpret_cast<int8_t*>(smem + P::q_off);
   int8_t* ks = reinterpret_cast<int8_t*>(smem + P::k_off);
-  bf16* vs = reinterpret_cast<bf16*>(smem + P::v_off);
+  T* vs = reinterpret_cast<T*>(smem + P::v_off);
   int* si = reinterpret_cast<int*>(smem + P::s_off);
-  bf16* ps = reinterpret_cast<bf16*>(smem + P::p_off);
+  T* ps = reinterpret_cast<T*>(smem + P::p_off);
   float* os = reinterpret_cast<float*>(smem + P::o_off);
   float* ms = reinterpret_cast<float*>(smem + P::m_off);
   float* ls = reinterpret_cast<float*>(smem + P::l_off);
@@ -167,9 +259,9 @@ flash_fwd_int8(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int64_t hd = int64_t(heads) * D;   // the output's row stride
-  const bf16* qg = q + (int64_t(b) * nq + q0) * ldq + int64_t(h) * D;
-  const bf16* kg = k + int64_t(b) * nkv * ldkv + int64_t(h) * D;
-  const bf16* vg = v + int64_t(b) * nkv * ldkv + int64_t(h) * D;
+  const T* qg = q + (int64_t(b) * nq + q0) * ldq + int64_t(h) * D;
+  const T* kg = k + int64_t(b) * nkv * ldkv + int64_t(h) * D;
+  const T* vg = v + int64_t(b) * nkv * ldkv + int64_t(h) * D;
   const int q_rows = min(BQ, nq - q0);
   const float sk = scale_of(__uint_as_float(kamax[b * heads + h]));
   const float inv_k = __fdiv_rn(1.f, sk);
@@ -184,7 +276,7 @@ flash_fwd_int8(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kQPer; ++j) {
       const int c = lane + 32 * j;
-      qv[j] = (r < q_rows && c < D) ? __bfloat162float(qg[r * ldq + c]) : 0.f;
+      qv[j] = (r < q_rows && c < D) ? to_f(qg[r * ldq + c]) : 0.f;
       amax = fmaxf(amax, fabsf(qv[j]));
     }
     const float sq = scale_of(warp_max(amax));
@@ -217,24 +309,22 @@ flash_fwd_int8(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = threadIdx.x; i < BKV * kChunks; i += kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * 8;
       uint2 q8 = make_uint2(0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (r < kv_rows && c < D) {
-        const uint4 u = *reinterpret_cast<const uint4*>(kg + int64_t(kv0 + r) * ldkv + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&u);
+      const bool ok = r < kv_rows && c < D;
+      if (ok) {
+        float e[8];
+        load8(kg + int64_t(kv0 + r) * ldkv + c, e);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const unsigned byte =
-              static_cast<unsigned>(quantize(__bfloat162float(e[j]), inv_k)) & 0xffu;
+          const unsigned byte = static_cast<unsigned>(quantize(e[j], inv_k)) & 0xffu;
           if (j < 4) q8.x |= byte << (8 * j);
           else q8.y |= byte << (8 * (j - 4));
         }
-        vv = *reinterpret_cast<const uint4*>(vg + int64_t(kv0 + r) * ldkv + c);
         if (st.kq != nullptr && blockIdx.x == 0)
           *reinterpret_cast<uint2*>(st.kq + (int64_t(b) * nkv + kv0 + r) * hd +
                                     int64_t(h) * D + c) = q8;
       }
       *reinterpret_cast<uint2*>(ks + (c / 16) * P::KPLANE + r * 16 + c % 16) = q8;
-      *reinterpret_cast<uint4*>(vs + r * P::LDH + c) = vv;
+      copy8(vs + r * P::LDH + c, vg + int64_t(kv0 + r) * ldkv + c, ok);
     }
     __syncthreads();
 
@@ -280,7 +370,7 @@ flash_fwd_int8(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < BKV / 32; ++j) {
         const float p = exp2f(sv[j] - m_new);
         sum += p;
-        ps[r * P::LDP + lane + 32 * j] = __float2bfloat16(p);
+        store_f(ps + r * P::LDP + lane + 32 * j, p);   // bf16: p rounded
       }
       sum = warp_sum(sum);
       const float alpha = exp2f(m_old - m_new);
@@ -293,48 +383,52 @@ flash_fwd_int8(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    // acc += p v on the tensor cores
-    for (int t = warp; t < (BQ / 16) * (DP / 16); t += kWarps) {
-      const int ti = t / (DP / 16), tj = t % (DP / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* dst = os + ti * 16 * P::LDO + tj * 16;
-      wmma::load_matrix_sync(acc, dst, P::LDO, wmma::mem_row_major);
+    if constexpr (sizeof(T) == 4) {
+      pv_f32<BQ, BKV, DP, P::LDP, P::LDH, P::LDO>(ps, vs, os);
+    } else {
+      // acc += p v on the tensor cores (bf16 p and v)
+      for (int t = warp; t < (BQ / 16) * (DP / 16); t += kWarps) {
+        const int ti = t / (DP / 16), tj = t % (DP / 16);
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        float* dst = os + ti * 16 * P::LDO + tj * 16;
+        wmma::load_matrix_sync(acc, dst, P::LDO, wmma::mem_row_major);
 #pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, ps + ti * 16 * P::LDP + kk, P::LDP);
-        wmma::load_matrix_sync(fb, vs + kk * P::LDH + tj * 16, P::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
+        for (int kk = 0; kk < BKV; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fa, ps + ti * 16 * P::LDP + kk, P::LDP);
+          wmma::load_matrix_sync(fb, vs + kk * P::LDH + tj * 16, P::LDH);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync(dst, acc, P::LDO, wmma::mem_row_major);
       }
-      wmma::store_matrix_sync(dst, acc, P::LDO, wmma::mem_row_major);
     }
   }
   __syncthreads();
 
-  bf16* og = o + (int64_t(b) * nq + q0) * hd + int64_t(h) * D;
+  T* og = o + (int64_t(b) * nq + q0) * hd + int64_t(h) * D;
   for (int i = threadIdx.x; i < q_rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    og[r * hd + c] = __float2bfloat16(os[r * P::LDO + c] / fmaxf(ls[r], 1e-37f));
+    store_f(og + r * hd + c, os[r * P::LDO + c] / fmaxf(ls[r], 1e-37f));
   }
 }
 
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+template <int D, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o,
                    unsigned* kamax, Stages st, int batch, int nq, int nkv,
                    int heads, int kv_len, float q_scale, int64_t ldq, int64_t ldkv,
                    cudaStream_t s) {
   constexpr int BQ = 64, BKV = 64;
-  using P = Plan<D, BQ, BKV>;
+  using P = Plan<D, BQ, BKV, T>;
   const int bh = batch * heads;
   cudaError_t err = cudaMemsetAsync(kamax, 0, sizeof(unsigned) * bh, s);
   if (err != cudaSuccess) return err;
   // enough blocks to fill the card twice, each of at least 32 rows
   const int slices = std::max(1, std::min((264 + bh - 1) / bh, nkv / 32));
-  k_absmax<D><<<dim3(bh, slices), kAmaxThreads, 0, s>>>(k, kamax, nkv, heads, ldkv);
+  k_absmax<D, T><<<dim3(bh, slices), kAmaxThreads, 0, s>>>(k, kamax, nkv, heads, ldkv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto kern = flash_fwd_int8<D, BQ, BKV>;
+  auto kern = flash_fwd_int8<D, BQ, BKV, T>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(P::bytes));
   if (err != cudaSuccess) return err;
@@ -344,20 +438,21 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      void* kamax, Stages st, int batch, int nq, int nkv,
                      int heads, int head_dim, int kv_len, float q_scale,
                      int64_t ldq, int64_t ldkv, cudaStream_t s) {
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  auto* ob = static_cast<bf16*>(o);
+  const auto* qb = static_cast<const T*>(q);
+  const auto* kb = static_cast<const T*>(k);
+  const auto* vb = static_cast<const T*>(v);
+  auto* ob = static_cast<T*>(o);
   auto* a = static_cast<unsigned*>(kamax);
   switch (head_dim) {
-    case 40: return launch<40>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
-    case 64: return launch<64>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
-    case 80: return launch<80>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
-    case 160: return launch<160>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
+    case 40: return launch<40, T>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
+    case 64: return launch<64, T>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
+    case 80: return launch<80, T>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
+    case 160: return launch<160, T>(qb, kb, vb, ob, a, st, batch, nq, nkv, heads, kv_len, q_scale, ldq, ldkv, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -369,6 +464,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // is taken over all nkv rows.  kamax: scratch, 4 bytes x batch*heads.
 // qq/sq/kq/sk: the stage outputs (see Stages) or null.  q_scale:
 // head_dim^-1/2 * log2(e) as f32.  Returns a cudaError_t (0 on success).
+// The `_f32` entry points take q, k, v and o in f32 (p is then not rounded).
 extern "C" int cfgpp_flash_attention_hd_int8(
     const void* q, const void* k, const void* v, void* o, void* kamax, void* qq,
     void* sq, void* kq, void* sk, int batch, int nq, int nkv, int heads,
@@ -376,20 +472,48 @@ extern "C" int cfgpp_flash_attention_hd_int8(
   const int64_t ld = int64_t(heads) * head_dim;
   const Stages st{static_cast<int8_t*>(qq), static_cast<float*>(sq),
                   static_cast<int8_t*>(kq), static_cast<float*>(sk)};
-  return dispatch(q, k, v, o, kamax, st, batch, nq, nkv, heads, head_dim, kv_len,
-                  q_scale, ld, ld, static_cast<cudaStream_t>(stream));
+  return dispatch<bf16>(q, k, v, o, kamax, st, batch, nq, nkv, heads, head_dim,
+                        kv_len, q_scale, ld, ld, static_cast<cudaStream_t>(stream));
 }
 
-// qkv: [batch, n, 3*heads*head_dim] bf16 (q | k | v on the channel dim),
-// contiguous, 16-byte aligned; o: [batch, n, heads*head_dim] bf16.
-// Self-attention, no mask.  Other arguments as above.
+extern "C" int cfgpp_flash_attention_hd_int8_f32(
+    const void* q, const void* k, const void* v, void* o, void* kamax, void* qq,
+    void* sq, void* kq, void* sk, int batch, int nq, int nkv, int heads,
+    int head_dim, int kv_len, float q_scale, void* stream) {
+  const int64_t ld = int64_t(heads) * head_dim;
+  const Stages st{static_cast<int8_t*>(qq), static_cast<float*>(sq),
+                  static_cast<int8_t*>(kq), static_cast<float*>(sk)};
+  return dispatch<float>(q, k, v, o, kamax, st, batch, nq, nkv, heads, head_dim,
+                         kv_len, q_scale, ld, ld, static_cast<cudaStream_t>(stream));
+}
+
+// qkv: [batch, n, 3*heads*head_dim] (q | k | v on the channel dim),
+// contiguous, 16-byte aligned; o: [batch, n, heads*head_dim]; both bf16, or
+// both f32 for the `_f32` entry point.  Self-attention, no mask.  Other
+// arguments as above.
+template <typename T>
+int qkv_packed_int8(const void* qkv, void* o, void* kamax, void* qq, void* sq,
+                    void* kq, void* sk, int batch, int n, int heads,
+                    int head_dim, float q_scale, void* stream) {
+  const int64_t hd = int64_t(heads) * head_dim;
+  const T* q = static_cast<const T*>(qkv);
+  const Stages st{static_cast<int8_t*>(qq), static_cast<float*>(sq),
+                  static_cast<int8_t*>(kq), static_cast<float*>(sk)};
+  return dispatch<T>(q, q + hd, q + 2 * hd, o, kamax, st, batch, n, n, heads,
+                     head_dim, n, q_scale, 3 * hd, 3 * hd,
+                     static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int cfgpp_flash_attention_qkv_packed_int8(
     const void* qkv, void* o, void* kamax, void* qq, void* sq, void* kq, void* sk,
     int batch, int n, int heads, int head_dim, float q_scale, void* stream) {
-  const int64_t hd = int64_t(heads) * head_dim;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const Stages st{static_cast<int8_t*>(qq), static_cast<float*>(sq),
-                  static_cast<int8_t*>(kq), static_cast<float*>(sk)};
-  return dispatch(q, q + hd, q + 2 * hd, o, kamax, st, batch, n, n, heads, head_dim,
-                  n, q_scale, 3 * hd, 3 * hd, static_cast<cudaStream_t>(stream));
+  return qkv_packed_int8<bf16>(qkv, o, kamax, qq, sq, kq, sk, batch, n, heads,
+                               head_dim, q_scale, stream);
+}
+
+extern "C" int cfgpp_flash_attention_qkv_packed_int8_f32(
+    const void* qkv, void* o, void* kamax, void* qq, void* sq, void* kq, void* sk,
+    int batch, int n, int heads, int head_dim, float q_scale, void* stream) {
+  return qkv_packed_int8<float>(qkv, o, kamax, qq, sq, kq, sk, batch, n, heads,
+                                head_dim, q_scale, stream);
 }

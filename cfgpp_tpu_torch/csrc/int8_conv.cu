@@ -9,12 +9,13 @@
 // rounded half to even and clipped to +-127; nine shifted int8 x int8
 // products with int32 accumulation against per-output-channel int8 weights;
 // the dequant (acc*sx)*ws, then + bias, + residual in f32, one rounding to
-// bf16.  Every f32 step uses the _rn intrinsics so that nvcc contracts
+// bf16 (none for f32 activations).  Every f32 step uses the _rn intrinsics so that nvcc contracts
 // nothing into an fma: the plain PyTorch version (kernels/int8_conv.py)
 // rounds each step on its own.
 //
-// Layouts: x bf16 [B, H, W, C] and residual/out bf16 [B, H, W, O]
-// (contiguous NHWC: the port's NCHW channels_last memory); w int8
+// Layouts: x [B, H, W, C] and residual/out [B, H, W, O], all bf16 or all
+// f32 (the `_f32` entry point; the TPU kernel takes either), contiguous NHWC
+// (the port's NCHW channels_last memory); w int8
 // [O, 3, 3, C], so each tap's 16-channel slice of an output channel is one
 // 16-byte load.
 //
@@ -35,14 +36,14 @@
 //   2. `conv3x3_s8` computes one output tile of 128 pixels (R rows x TW
 //      columns of one window, TW = 64 or 32) x 128 output channels.  For
 //      each 64-channel chunk it loads the tile's (R+2) x (TW+2) input patch
-//      from bf16, applies the prologue, zeroes the padding, quantizes with
+//      from bf16 or f32, applies the prologue, zeroes the padding, quantizes with
 //      the window's scale and stores three column-shifted int8 copies in
 //      shared memory (as the TPU kernel stages its three dw shifts), so that
 //      every tap (dh, dw) is a plain 128-row slice of copy dw starting dh*TW
 //      pixels in, 32-byte aligned as wmma requires.  Per tap it stages the
 //      weights' 128 x 64 slice and runs nvcuda::wmma m16n16k16 signed-char
 //      fragments with int accumulators (8 warps of 32 x 64, as gemm_s8 in
-//      int8_matmul.cu).  The epilogue dequantizes and writes bf16.
+//      int8_matmul.cu).  The epilogue dequantizes and writes x's type.
 // Overlapping the loads with the products (cp.async / TMA), keeping the
 // quantized patch across output-channel blocks, and wgmma are the known
 // next steps.
@@ -76,7 +77,9 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+// Eight consecutive activations (16- or 32-byte aligned) as f32.
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -85,6 +88,17 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
     f[2 * j + 1] = t.y;
   }
 }
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 
 // silu(x*g + b) as the plain version computes it: x*g, + b, then
 // v * sigmoid(v) with sigmoid = 1 / (1 + exp(-v)) (torch's formula).
@@ -104,9 +118,9 @@ __device__ __forceinline__ float window_scale(const unsigned* amax, int win) {
 
 // |prologue(x)| max over window blockIdx.x's valid rows (h0-1 .. h0+br,
 // inside the sample), split over gridDim.y blocks.
-template <bool GN>
+template <bool GN, typename T>
 __global__ void __launch_bounds__(kAmaxThreads)
-window_amax(const bf16* __restrict__ x, const float* __restrict__ gs,
+window_amax(const T* __restrict__ x, const float* __restrict__ gs,
             const float* __restrict__ gb, unsigned* __restrict__ amax, int H,
             int W, int C, int br) {
   const int win = blockIdx.x;
@@ -117,13 +131,13 @@ window_amax(const bf16* __restrict__ x, const float* __restrict__ gs,
   const int64_t groups = int64_t(r_hi - r_lo) * W * (C / 8);
   const int64_t g0 = groups * blockIdx.y / gridDim.y;
   const int64_t g1 = groups * (blockIdx.y + 1) / gridDim.y;
-  const bf16* base = x + (int64_t(b) * H + r_lo) * W * C;
+  const T* base = x + (int64_t(b) * H + r_lo) * W * C;
   const float* g = GN ? gs + int64_t(b) * C : nullptr;
   const float* bb = GN ? gb + int64_t(b) * C : nullptr;
   float m = 0.f;
   for (int64_t i = g0 + threadIdx.x; i < g1; i += kAmaxThreads) {
     float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(base + i * 8), f);
+    load8(base + i * 8, f);
     const int c = int((i * 8) % C);
 #pragma unroll
     for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(prologue<GN>(f[j], g, bb, c + j)));
@@ -154,12 +168,12 @@ struct ConvPlan {
 
 // One block: output pixels rows h0 .. h0+rows-1, columns col0 .. col0+tw-1
 // of sample b (all inside one scale window), output channels o0 .. o0+BN-1.
-template <bool GN>
+template <bool GN, typename T>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_s8(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+conv3x3_s8(const T* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ ws, const float* __restrict__ bias,
            const float* __restrict__ gs, const float* __restrict__ gb,
-           const bf16* __restrict__ res, bf16* __restrict__ out,
+           const T* __restrict__ res, T* __restrict__ out,
            const unsigned* __restrict__ amax, float* __restrict__ sx_out,
            int8_t* __restrict__ xq_out, int H, int W, int C, int O, int br,
            int tw, int rows) {
@@ -212,8 +226,7 @@ conv3x3_s8(const bf16* __restrict__ x, const int8_t* __restrict__ w,
       unsigned lo = 0u, hi8 = 0u;
       if (r < rows + 2 && hi >= 0 && hi < H && wi >= 0 && wi < W && c < C) {
         float f[8];
-        unpack8(*reinterpret_cast<const uint4*>(
-                    x + ((int64_t(b) * H + hi) * W + wi) * C + c), f);
+        load8(x + ((int64_t(b) * H + hi) * W + wi) * C + c, f);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float v = prologue<GN>(f[j], g, bb, c + j);
@@ -281,18 +294,18 @@ conv3x3_s8(const bf16* __restrict__ x, const int8_t* __restrict__ w,
         const int64_t px = (int64_t(b) * H + h0 + row) * W + col0 + col;
         float y = __fmul_rn(__fmul_rn(__int2float_rn(sc[e]), s), ws[n]);
         if (bias) y = __fadd_rn(y, bias[n]);
-        if (res) y = __fadd_rn(y, __bfloat162float(res[px * O + n]));
-        out[px * O + n] = __float2bfloat16_rn(y);
+        if (res) y = __fadd_rn(y, to_f(res[px * O + n]));
+        store_f(out + px * O + n, y);
       }
       __syncwarp();
     }
   }
 }
 
-template <bool GN>
-cudaError_t launch(const bf16* x, const int8_t* w, const float* ws,
+template <bool GN, typename T>
+cudaError_t launch(const T* x, const int8_t* w, const float* ws,
                    const float* bias, const float* gs, const float* gb,
-                   const bf16* res, bf16* out, unsigned* amax, float* sx,
+                   const T* res, T* out, unsigned* amax, float* sx,
                    int8_t* xq, int B, int H, int W, int C, int O, int br,
                    cudaStream_t s) {
   const int nb = B * H / br;
@@ -302,7 +315,7 @@ cudaError_t launch(const bf16* x, const int8_t* w, const float* ws,
   const int64_t groups = int64_t(std::min(br + 2, H)) * W * (C / 8);
   const int64_t slices =
       std::max<int64_t>(1, std::min<int64_t>((264 + nb - 1) / nb, groups / 1024));
-  window_amax<GN><<<dim3(nb, unsigned(slices)), kAmaxThreads, 0, s>>>(x, gs, gb, amax,
+  window_amax<GN, T><<<dim3(nb, unsigned(slices)), kAmaxThreads, 0, s>>>(x, gs, gb, amax,
                                                                      H, W, C, br);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -311,7 +324,7 @@ cudaError_t launch(const bf16* x, const int8_t* w, const float* ws,
   const ConvPlan P(tw);
   const int rows = std::min(P.rmax, br);
   if (br % rows) return cudaErrorInvalidValue;
-  auto kern = conv3x3_s8<GN>;
+  auto kern = conv3x3_s8<GN, T>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(P.bytes));
   if (err != cudaSuccess) return err;
@@ -321,6 +334,28 @@ cudaError_t launch(const bf16* x, const int8_t* w, const float* ws,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t conv3x3(const void* x, const void* w, const void* ws,
+                    const void* bias, const void* gs, const void* gb,
+                    const void* res, void* out, void* amax, void* sx, void* xq,
+                    int B, int H, int W, int C, int O, int br, cudaStream_t s) {
+  if (C % 16 || W % 32 || br < 1 || H % br) return cudaErrorInvalidValue;
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wq = static_cast<const int8_t*>(w);
+  const auto* wsf = static_cast<const float*>(ws);
+  const auto* bf = static_cast<const float*>(bias);
+  const auto* g = static_cast<const float*>(gs);
+  const auto* be = static_cast<const float*>(gb);
+  const auto* r = static_cast<const T*>(res);
+  auto* o = static_cast<T*>(out);
+  auto* a = static_cast<unsigned*>(amax);
+  auto* sxf = static_cast<float*>(sx);
+  auto* q = static_cast<int8_t*>(xq);
+  if (g != nullptr)
+    return launch<true, T>(xt, wq, wsf, bf, g, be, r, o, a, sxf, q, B, H, W, C, O, br, s);
+  return launch<false, T>(xt, wq, wsf, bf, g, be, r, o, a, sxf, q, B, H, W, C, O, br, s);
+}
+
 }  // namespace
 
 // x bf16 [B, H, W, C] contiguous; w int8 [O, 3, 3, C]; ws f32 [O]; bias f32
@@ -328,26 +363,23 @@ cudaError_t launch(const bf16* x, const int8_t* w, const float* ws,
 // or null; out bf16 [B, H, W, O].  Scratch: amax (4 bytes x B*H/br).  sx f32
 // [B*H/br] receives the window scales; xq int8 [B*H/br, br+2, W, C] the
 // quantized windows, or null.  C a multiple of 16, W of 32, br divides H.
-// Returns a cudaError_t (0 on success).
+// Returns a cudaError_t (0 on success).  The `_f32` entry point takes x, res
+// and out in f32, with the same arguments otherwise.
 extern "C" int cfgpp_int8_conv3x3(const void* x, const void* w, const void* ws,
                                   const void* bias, const void* gs, const void* gb,
                                   const void* res, void* out, void* amax, void* sx,
                                   void* xq, int B, int H, int W, int C, int O,
                                   int br, void* stream) {
-  if (C % 16 || W % 32 || br < 1 || H % br) return int(cudaErrorInvalidValue);
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* wq = static_cast<const int8_t*>(w);
-  const auto* wsf = static_cast<const float*>(ws);
-  const auto* bf = static_cast<const float*>(bias);
-  const auto* g = static_cast<const float*>(gs);
-  const auto* be = static_cast<const float*>(gb);
-  const auto* r = static_cast<const bf16*>(res);
-  auto* o = static_cast<bf16*>(out);
-  auto* a = static_cast<unsigned*>(amax);
-  auto* sxf = static_cast<float*>(sx);
-  auto* q = static_cast<int8_t*>(xq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g != nullptr)
-    return launch<true>(xb, wq, wsf, bf, g, be, r, o, a, sxf, q, B, H, W, C, O, br, s);
-  return launch<false>(xb, wq, wsf, bf, g, be, r, o, a, sxf, q, B, H, W, C, O, br, s);
+  return conv3x3<bf16>(x, w, ws, bias, gs, gb, res, out, amax, sx, xq, B, H, W,
+                       C, O, br, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cfgpp_int8_conv3x3_f32(const void* x, const void* w,
+                                      const void* ws, const void* bias,
+                                      const void* gs, const void* gb,
+                                      const void* res, void* out, void* amax,
+                                      void* sx, void* xq, int B, int H, int W,
+                                      int C, int O, int br, void* stream) {
+  return conv3x3<float>(x, w, ws, bias, gs, gb, res, out, amax, sx, xq, B, H,
+                        W, C, O, br, static_cast<cudaStream_t>(stream));
 }

@@ -7,7 +7,8 @@
 // x * (1/sx), sx = max(amax, 1e-6) * (1/127), round half to even, clip to
 // +-127; an int8 x int8 dot with int32 accumulation against per-output-row
 // int8 weights (torch layout w [N, K]); the rank-1 dequant acc*sx*sw, then
-// + bias, + residual in f32, one rounding to bf16.  Every f32 step uses the
+// + bias, + residual in f32, one rounding to bf16 (none for f32 activations,
+// below).  Every f32 step uses the
 // _rn intrinsics so that nvcc contracts nothing into an fma: the plain
 // PyTorch version (kernels/int8_matmul.py) rounds each step on its own.
 //
@@ -54,6 +55,12 @@
 //   value and the gate of the same two hidden columns; v*gelu(g) forms in
 //   registers and is stored as float2.
 //
+// Activations: x, the residual and the output are all bf16 or all f32 (the
+// `_f32` entry points), as the TPU kernels take either and write o_ref's
+// dtype.  Only the quantize pre-pass and the epilogue see that type: the
+// GEMM core reads int8.  In f32 the epilogue rounds nothing after its _rn
+// steps, so the output equals the plain version's f32 result.
+//
 // int8_ff_geglu: the requantize scale of a hidden row needs the absmax over
 // all N before the second dot, and the TPU kernel quantizes the hidden row
 // from f32.  This version writes the f32 hidden state [M, N] to device
@@ -93,6 +100,21 @@ __device__ __forceinline__ float load_f(const bf16* p, int64_t i) {
   return __bfloat162float(p[i]);
 }
 __device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
+
+// Two adjacent activations as f32, and two f32 values stored as T (bf16:
+// one rounding each; f32: as they are).
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 
 // One warp per row: optional prologue, absmax, quantize.  The prologue is
 // recomputed in each pass instead of stored; it is the same arithmetic, so
@@ -229,12 +251,12 @@ __device__ __forceinline__ float dequant(int acc, float s_row, float sw,
 // tile holds 8 value rows n0+8j.. and then the same 8 columns' gate rows
 // n+n0+8j.., so a warp's n8 tiles 2j and 2j+1 are the value and the gate of
 // the same 8 hidden columns and v*gelu(g) forms in registers.
-template <class C, bool GEGLU>
+template <class C, bool GEGLU, typename T>
 __global__ void __launch_bounds__(C::kThreads)
 gemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
         const float* __restrict__ sa, const float* __restrict__ sw,
-        const float* __restrict__ bias, const bf16* __restrict__ res,
-        bf16* __restrict__ out, float* __restrict__ hout, int m, int n, int k) {
+        const float* __restrict__ bias, const T* __restrict__ res,
+        T* __restrict__ out, float* __restrict__ hout, int m, int n, int k) {
   extern __shared__ __align__(128) int8_t smem[];
   constexpr int BM = C::BM, BN = C::BN, MT = C::MT, NT = C::NT;
   constexpr int kCols = GEGLU ? BN / 2 : BN;   // output columns per block
@@ -379,13 +401,11 @@ gemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
                              col + 1);
           const int64_t o = int64_t(row) * n + col;
           if (res) {
-            const __nv_bfloat162 r2 =
-                *reinterpret_cast<const __nv_bfloat162*>(res + o);
-            y0 = __fadd_rn(y0, __low2float(r2));
-            y1 = __fadd_rn(y1, __high2float(r2));
+            const float2 r2 = load2(res + o);
+            y0 = __fadd_rn(y0, r2.x);
+            y1 = __fadd_rn(y1, r2.y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + o) =
-              __floats2bfloat162_rn(y0, y1);
+          store2(out + o, y0, y1);
         }
       }
     }
@@ -412,12 +432,12 @@ int sm_count() {
   return count;
 }
 
-template <class C, bool GEGLU>
+template <class C, bool GEGLU, typename T>
 cudaError_t launch_tile(const int8_t* a, const int8_t* w, const float* sa,
-                        const float* sw, const float* bias, const bf16* res,
-                        bf16* out, float* hout, int m, int n, int k,
+                        const float* sw, const float* bias, const T* res,
+                        T* out, float* hout, int m, int n, int k,
                         cudaStream_t s) {
-  auto kern = gemm_s8<C, GEGLU>;
+  auto kern = gemm_s8<C, GEGLU, T>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return attr;
@@ -443,11 +463,11 @@ cudaError_t launch_tile(const int8_t* a, const int8_t* w, const float* sa,
 // L2).  The factor was read off an H100 80GB HBM3 with
 // cfgpp_tpu_torch/tools/int8_ab.py: 128 x 128 wins at 240 blocks on 132 SMs
 // (SD-1.5 level 1 to_qkv) and loses at 192 (level 0, N = 320).  No split
-// over k.
-template <bool GEGLU>
+// over k.  The GEGLU form writes only the f32 hidden state (T unused).
+template <bool GEGLU, typename T>
 cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* sa,
-                        const float* sw, const float* bias, const bf16* res,
-                        bf16* out, float* hout, int m, int n, int k,
+                        const float* sw, const float* bias, const T* res,
+                        T* out, float* hout, int m, int n, int k,
                         cudaStream_t s) {
   auto cost = [&](int bm, int bn, int per_output_x10) -> int64_t {
     const int cols = GEGLU ? bn / 2 : bn;
@@ -457,57 +477,44 @@ cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* sa,
   };
   if (cost(LargeTile::BM, LargeTile::BN, 10) <=
       cost(SmallTile::BM, SmallTile::BN, 13))
-    return launch_tile<LargeTile, GEGLU>(a, w, sa, sw, bias, res, out, hout, m,
-                                         n, k, s);
-  return launch_tile<SmallTile, GEGLU>(a, w, sa, sw, bias, res, out, hout, m,
-                                       n, k, s);
+    return launch_tile<LargeTile, GEGLU, T>(a, w, sa, sw, bias, res, out, hout,
+                                            m, n, k, s);
+  return launch_tile<SmallTile, GEGLU, T>(a, w, sa, sw, bias, res, out, hout,
+                                          m, n, k, s);
 }
 
-}  // namespace
-
-// x bf16 [m, k] (contiguous); w int8 [n, k]; ws f32 [n]; bias f32 [n] or
-// null; g/b: LayerNorm gamma/beta f32 [k] (mode 1) or affine scale/shift f32
-// [m / rows_per_sample, k] (mode 2), else null; res bf16 [m, n] or null;
-// out bf16 [m, n]; xq int8 [m, k] and sx f32 [m] are scratch.  k and n are
-// multiples of 16.  Returns a cudaError_t (0 on success).
-extern "C" int cfgpp_int8_matmul(const void* x, const void* w, const void* ws,
-                                 const void* bias, const void* g, const void* b,
-                                 const void* res, void* out, void* xq, void* sx,
-                                 int m, int n, int k, int mode,
-                                 int rows_per_sample, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename T>
+cudaError_t int8_matmul(const void* x, const void* w, const void* ws,
+                        const void* bias, const void* g, const void* b,
+                        const void* res, void* out, void* xq, void* sx, int m,
+                        int n, int k, int mode, int rows_per_sample, float eps,
+                        cudaStream_t s) {
   cudaError_t err = launch_quantize(
-      static_cast<const bf16*>(x), static_cast<const float*>(g),
+      static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const float*>(b), static_cast<int8_t*>(xq),
       static_cast<float*>(sx), m, k, mode, rows_per_sample, eps, s);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false>(
+  return launch_gemm<false, T>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w),
       static_cast<const float*>(sx), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<const bf16*>(res),
-      static_cast<bf16*>(out), nullptr, m, n, k, s);
+      static_cast<const float*>(bias), static_cast<const T*>(res),
+      static_cast<T*>(out), nullptr, m, n, k, s);
 }
 
-// x bf16 [m, k]; w1 int8 [2n, k] (value rows, then gate rows), s1/b1 f32
-// [2n]; w2 int8 [o, n], s2/b2 f32 [o]; g/b LayerNorm f32 [k] (mode 1) or
-// null (mode 0); res bf16 [m, o] or null; out bf16 [m, o].  Scratch: xq int8
-// [m, k], sx f32 [m], h f32 [m, n], hq int8 [m, n], sh f32 [m].  k, n and o
-// are multiples of 16.  Returns a cudaError_t (0 on success).
-extern "C" int cfgpp_int8_ff_geglu(const void* x, const void* w1, const void* s1,
-                                   const void* b1, const void* w2, const void* s2,
-                                   const void* b2, const void* g, const void* b,
-                                   const void* res, void* out, void* xq, void* sx,
-                                   void* h, void* hq, void* sh, int m, int n,
-                                   int k, int o, int mode, float eps,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == kAffine) return int(cudaErrorInvalidValue);
+template <typename T>
+cudaError_t int8_ff_geglu(const void* x, const void* w1, const void* s1,
+                          const void* b1, const void* w2, const void* s2,
+                          const void* b2, const void* g, const void* b,
+                          const void* res, void* out, void* xq, void* sx,
+                          void* h, void* hq, void* sh, int m, int n, int k,
+                          int o, int mode, float eps, cudaStream_t s) {
+  if (mode == kAffine) return cudaErrorInvalidValue;
   cudaError_t err = launch_quantize(
-      static_cast<const bf16*>(x), static_cast<const float*>(g),
+      static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const float*>(b), static_cast<int8_t*>(xq),
       static_cast<float*>(sx), m, k, mode, 1, eps, s);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<true>(
+  err = launch_gemm<true, bf16>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1),
       static_cast<const float*>(sx), static_cast<const float*>(s1),
       static_cast<const float*>(b1), nullptr, nullptr, static_cast<float*>(h),
@@ -517,9 +524,71 @@ extern "C" int cfgpp_int8_ff_geglu(const void* x, const void* w1, const void* s1
                         static_cast<int8_t*>(hq), static_cast<float*>(sh), m, n,
                         kNone, 1, 0.f, s);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false>(
+  return launch_gemm<false, T>(
       static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2),
       static_cast<const float*>(sh), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(res),
-      static_cast<bf16*>(out), nullptr, m, o, n, s);
+      static_cast<const float*>(b2), static_cast<const T*>(res),
+      static_cast<T*>(out), nullptr, m, o, n, s);
+}
+
+}  // namespace
+
+// x bf16 [m, k] (contiguous); w int8 [n, k]; ws f32 [n]; bias f32 [n] or
+// null; g/b: LayerNorm gamma/beta f32 [k] (mode 1) or affine scale/shift f32
+// [m / rows_per_sample, k] (mode 2), else null; res bf16 [m, n] or null;
+// out bf16 [m, n]; xq int8 [m, k] and sx f32 [m] are scratch.  k and n are
+// multiples of 16.  Returns a cudaError_t (0 on success).  The `_f32` entry
+// point takes x, res and out in f32, with the same arguments otherwise.
+extern "C" int cfgpp_int8_matmul(const void* x, const void* w, const void* ws,
+                                 const void* bias, const void* g, const void* b,
+                                 const void* res, void* out, void* xq, void* sx,
+                                 int m, int n, int k, int mode,
+                                 int rows_per_sample, float eps, void* stream) {
+  return int8_matmul<bf16>(x, w, ws, bias, g, b, res, out, xq, sx, m, n, k,
+                           mode, rows_per_sample, eps,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cfgpp_int8_matmul_f32(const void* x, const void* w,
+                                     const void* ws, const void* bias,
+                                     const void* g, const void* b,
+                                     const void* res, void* out, void* xq,
+                                     void* sx, int m, int n, int k, int mode,
+                                     int rows_per_sample, float eps,
+                                     void* stream) {
+  return int8_matmul<float>(x, w, ws, bias, g, b, res, out, xq, sx, m, n, k,
+                            mode, rows_per_sample, eps,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// x bf16 [m, k]; w1 int8 [2n, k] (value rows, then gate rows), s1/b1 f32
+// [2n]; w2 int8 [o, n], s2/b2 f32 [o]; g/b LayerNorm f32 [k] (mode 1) or
+// null (mode 0); res bf16 [m, o] or null; out bf16 [m, o].  Scratch: xq int8
+// [m, k], sx f32 [m], h f32 [m, n], hq int8 [m, n], sh f32 [m].  k, n and o
+// are multiples of 16.  Returns a cudaError_t (0 on success).  The `_f32`
+// entry point takes x, res and out in f32.
+extern "C" int cfgpp_int8_ff_geglu(const void* x, const void* w1, const void* s1,
+                                   const void* b1, const void* w2, const void* s2,
+                                   const void* b2, const void* g, const void* b,
+                                   const void* res, void* out, void* xq, void* sx,
+                                   void* h, void* hq, void* sh, int m, int n,
+                                   int k, int o, int mode, float eps,
+                                   void* stream) {
+  return int8_ff_geglu<bf16>(x, w1, s1, b1, w2, s2, b2, g, b, res, out, xq, sx,
+                             h, hq, sh, m, n, k, o, mode, eps,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cfgpp_int8_ff_geglu_f32(const void* x, const void* w1,
+                                       const void* s1, const void* b1,
+                                       const void* w2, const void* s2,
+                                       const void* b2, const void* g,
+                                       const void* b, const void* res,
+                                       void* out, void* xq, void* sx, void* h,
+                                       void* hq, void* sh, int m, int n, int k,
+                                       int o, int mode, float eps,
+                                       void* stream) {
+  return int8_ff_geglu<float>(x, w1, s1, b1, w2, s2, b2, g, b, res, out, xq,
+                              sx, h, hq, sh, m, n, k, o, mode, eps,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -12,8 +12,9 @@ from the kernels: a tensor they do not take raises.
 
 `flash_attention_hd_int8` and `flash_attention_qkv_packed_int8` are the
 int8-score counterparts (the score dot in int8, per-row q scales and one
-scalar k scale per (batch, head); p@v in bf16), with the hand-written
-kernel in ``cfgpp_tpu_torch/csrc/flash_attention_int8.cu`` and the plain
+scalar k scale per (batch, head); p rounded to v's dtype and p@v in it:
+bf16, or f32 for f32 inputs), with the hand-written kernel in
+``cfgpp_tpu_torch/csrc/flash_attention_int8.cu`` (both dtypes) and the plain
 versions `flash_attention_hd_int8_reference` /
 `flash_attention_qkv_packed_int8_reference`.  `int8_score_applies` says
 where the quantized UNet's self-attention takes them: exactly where the
@@ -107,19 +108,17 @@ def _load(name: str, suffix: str) -> ctypes.CDLL:
 _KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 
-def _check_kernel_inputs(num_heads: int, hd: int,
-                         dtypes=tuple(_KERNEL_DTYPES), **tensors) -> int:
+def _check_kernel_inputs(num_heads: int, hd: int, **tensors) -> int:
     """The kernels' conditions: D in `HEAD_DIMS`; every tensor on one device
-    with one dtype out of ``dtypes``, contiguous and 16-byte aligned."""
+    with one dtype, bf16 or f32, contiguous and 16-byte aligned."""
     d = hd // num_heads
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
     first = next(iter(tensors.values()))
     dev, dt = first.device, first.dtype
-    if dt not in dtypes:
-        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
-        raise ValueError(f"{next(iter(tensors))}: expected {names} on {dev}, "
-                         f"got {dt}")
+    if dt not in _KERNEL_DTYPES:
+        raise ValueError(f"{next(iter(tensors))}: expected bfloat16 or float32"
+                         f" on {dev}, got {dt}")
     for name, t in tensors.items():
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"{name}: expected {dt} on {dev} like the other "
@@ -332,11 +331,12 @@ def _lib_int8():
 
     lib = load_library("flash_attention_int8")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cfgpp_flash_attention_hd_int8.argtypes = [p] * 9 + [i] * 6 + [f, p]
-    lib.cfgpp_flash_attention_qkv_packed_int8.argtypes = (
-        [p] * 7 + [i] * 4 + [f, p])
-    lib.cfgpp_flash_attention_hd_int8.restype = i
-    lib.cfgpp_flash_attention_qkv_packed_int8.restype = i
+    for suffix in _KERNEL_DTYPES.values():
+        hd = getattr(lib, f"cfgpp_flash_attention_hd_int8{suffix}")
+        packed = getattr(lib, f"cfgpp_flash_attention_qkv_packed_int8{suffix}")
+        hd.argtypes = [p] * 9 + [i] * 6 + [f, p]
+        packed.argtypes = [p] * 7 + [i] * 4 + [f, p]
+        hd.restype = packed.restype = i
     return lib
 
 
@@ -350,13 +350,12 @@ def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
     b, nq, hd = q.shape
     nkv = k.shape[1]
     tensors = {"q": q, "k": k, "v": v} if qkv is None else {"qkv": qkv}
-    d = _check_kernel_inputs(num_heads, hd, dtypes=(torch.bfloat16,),
-                             **tensors)
+    d = _check_kernel_inputs(num_heads, hd, **tensors)
     if d not in INT8_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in the int8 kernel's "
                          f"{INT8_HEAD_DIMS}")
-    dev = x.device
-    out = torch.empty((b, nq, hd), dtype=torch.bfloat16, device=dev)
+    dev, suffix = x.device, _KERNEL_DTYPES[x.dtype]
+    out = torch.empty((b, nq, hd), dtype=x.dtype, device=dev)
     kamax = torch.empty((b * num_heads,), dtype=torch.int32, device=dev)
     st = [None] * 4
     if stages:
@@ -366,15 +365,17 @@ def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
               torch.empty((b, num_heads), dtype=torch.float32, device=dev)]
     ptrs = [None if t is None else t.data_ptr() for t in st]
     q_scale = d ** -0.5 * LOG2E
+    entry = "hd_int8" if qkv is None else "qkv_packed_int8"
+    fn = getattr(_lib_int8(), f"cfgpp_flash_attention_{entry}{suffix}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if qkv is None:
-            err = _lib_int8().cfgpp_flash_attention_hd_int8(
+            err = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 kamax.data_ptr(), *ptrs, b, nq, nkv, num_heads, d, n,
                 q_scale, stream)
         else:
-            err = _lib_int8().cfgpp_flash_attention_qkv_packed_int8(
+            err = fn(
                 qkv.data_ptr(), out.data_ptr(), kamax.data_ptr(), *ptrs, b,
                 nq, num_heads, d, q_scale, stream)
     if err:
@@ -391,8 +392,10 @@ def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
 
 
 def _check_int8_out(out_dtype, x) -> None:
-    if out_dtype not in (None, torch.bfloat16) and x.device.type == "cuda":
-        raise ValueError(f"the kernel writes bf16, not {out_dtype}")
+    """The kernel writes its inputs' dtype: ``out_dtype`` None or that."""
+    if out_dtype not in (None, x.dtype):
+        raise ValueError(f"the kernel writes the inputs' dtype {x.dtype}, "
+                         f"not {out_dtype}")
 
 
 def flash_attention_hd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -402,7 +405,8 @@ def flash_attention_hd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Int8-score attention: q [B, Nq, H*D], k/v [B, Nkv, H*D] ->
     [B, Nq, H*D], non-causal, kv rows at or past ``kv_len`` masked (the k
     scale still covers every row, as the TPU kernel's).  CUDA tensors must be
-    bf16 with D in `INT8_HEAD_DIMS`; the output is bf16 there."""
+    all bf16 or all f32 with D in `INT8_HEAD_DIMS`; the output has their
+    dtype there."""
     n = _check_shapes(q, k, v, num_heads, kv_len)
     if q.device.type == "cpu":
         return flash_attention_hd_int8_reference(q, k, v, num_heads, kv_len,

@@ -25,6 +25,11 @@ NHWC; the port's NCHW channels_last tensors are this memory seen through
 dimension contiguous, so a tap's 16-channel slice is one 16-byte load) with
 one f32 scale per output channel.
 
+On a CUDA tensor x, the residual and the output are all bf16 or all f32
+(the TPU kernel takes either); x's dtype picks the entry point
+(``cfgpp_int8_conv3x3`` or ``cfgpp_int8_conv3x3_f32``) and ``out_dtype``
+must equal it.
+
 `int8_conv3x3_stages` launches the same kernel and also returns the int8
 windows and their scales, so that a check can hold each stage against
 `conv_windows_reference` and `window_conv_reference`.
@@ -237,9 +242,15 @@ def _lib():
 
     lib = load_library("int8_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cfgpp_int8_conv3x3.argtypes = [p] * 11 + [i] * 6 + [p]
-    lib.cfgpp_int8_conv3x3.restype = i
+    for fn in (lib.cfgpp_int8_conv3x3, lib.cfgpp_int8_conv3x3_f32):
+        fn.argtypes = [p] * 11 + [i] * 6 + [p]
+        fn.restype = i
     return lib
+
+
+# The C entry point by activation dtype.
+_ENTRIES = {torch.bfloat16: "cfgpp_int8_conv3x3",
+            torch.float32: "cfgpp_int8_conv3x3_f32"}
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -254,13 +265,26 @@ def _f32(t: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
     return t.float().contiguous()
 
 
-def _bf16(t: torch.Tensor, dev, name: str) -> torch.Tensor:
-    """An NHWC activation as contiguous bf16 on ``dev`` (a channels_last
-    NCHW tensor seen through ``permute(0, 2, 3, 1)`` already is)."""
-    if t.device != dev or t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: expected bf16 on {dev}, got {t.dtype} on "
-                         f"{t.device}")
+def _activation(t: torch.Tensor, dev, dtype, name: str) -> torch.Tensor:
+    """An NHWC activation as contiguous ``dtype`` on ``dev`` (a
+    channels_last NCHW tensor seen through ``permute(0, 2, 3, 1)`` already
+    is)."""
+    if t.device != dev or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} "
+                         f"on {t.device}")
     return t.contiguous()
+
+
+def _kernel_dtype(x: torch.Tensor, out_dtype: torch.dtype) -> torch.dtype:
+    """The kernel's activation dtype: x's, bf16 or f32, which ``out_dtype``
+    must equal (the residual is checked against it where it is read)."""
+    if x.dtype not in _ENTRIES:
+        raise ValueError(f"x: expected bfloat16 or float32 on {x.device}, got "
+                         f"{x.dtype}")
+    if out_dtype != x.dtype:
+        raise ValueError(f"the kernel writes x's dtype {x.dtype}, not "
+                         f"{out_dtype}")
+    return x.dtype
 
 
 def int8_conv3x3(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -276,8 +300,8 @@ def int8_conv3x3(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     ``gn_scale``/``gn_bias`` f32 [B, C]: the fused prologue
     ``silu(x*gn_scale + gn_bias)``.  ``residual`` [B, H, W, O]: added in the
     dequant epilogue.  ``block_rows``: the scale window (default
-    `scale_window_rows`).  On a CUDA tensor x and residual are bf16 and so
-    is the output."""
+    `scale_window_rows`).  On a CUDA tensor x and residual are both bf16 or
+    both f32, and the output has their dtype."""
     _check_args(x, w_q, w_scale, gn_scale, gn_bias, residual)
     if x.device.type == "cpu":
         return int8_conv3x3_reference(x, w_q, w_scale, bias, gn_scale,
@@ -305,9 +329,7 @@ def int8_conv3x3_stages(x: torch.Tensor, w_q: torch.Tensor,
     _check_args(x, w_q, w_scale, gn_scale, gn_bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3: no kernel for {x.device}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"the kernel writes bf16, not {out_dtype}")
-    dev = x.device
+    dev, dt = x.device, _kernel_dtype(x, out_dtype)
     b, h, w, c = x.shape
     o = w_q.shape[0]
     if c % 16 or w % 32:
@@ -317,18 +339,19 @@ def int8_conv3x3_stages(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"w_q must be contiguous on {dev}")
     br = _window_rows(x, w_q, block_rows)
     nb = b * h // br
-    xc = _bf16(x, dev, "x")
-    res = None if residual is None else _bf16(residual, dev, "residual")
+    xc = _activation(x, dev, dt, "x")
+    res = None if residual is None else _activation(residual, dev, dt,
+                                                    "residual")
     ws, bs = _f32(w_scale, dev), _f32(bias, dev)
     gs, gb = _f32(gn_scale, dev), _f32(gn_bias, dev)
-    out = torch.empty((b, h, w, o), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, h, w, o), dtype=dt, device=dev)
     amax = torch.empty((nb,), dtype=torch.int32, device=dev)
     sx = torch.empty((nb,), dtype=torch.float32, device=dev)
     xq = (torch.empty((nb, br + 2, w, c), dtype=torch.int8, device=dev)
           if want_windows else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().cfgpp_int8_conv3x3(
+        err = getattr(_lib(), _ENTRIES[dt])(
             xc.data_ptr(), w_q.data_ptr(), ws.data_ptr(), _ptr(bs), _ptr(gs),
             _ptr(gb), _ptr(res), out.data_ptr(), amax.data_ptr(),
             sx.data_ptr(), _ptr(xq), b, h, w, c, o, br, stream)

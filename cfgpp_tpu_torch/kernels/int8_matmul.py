@@ -16,6 +16,12 @@ round half to even, clip to +-127; int32 accumulation; rank-1 dequant;
 f32 bias and residual before the one rounding to ``out_dtype``).  Weights
 are in torch layout: ``w_q`` int8 [N, K], one f32 scale per output row.
 
+On a CUDA tensor the activations (x, the residual and the output) are all
+bf16 or all f32, as the TPU kernels take either: x's dtype picks the
+kernels' entry points (``cfgpp_int8_matmul`` or ``cfgpp_int8_matmul_f32``,
+and the same for the feed-forward), ``out_dtype`` must equal it, and
+nothing is converted on the way in.
+
 `int8_matmul_stages` and `int8_ff_geglu_stages` launch the same kernels
 and also return what the kernel computed on the way (the quantized rows;
 the feed-forward's f32 hidden state and its requantized rows), so that a
@@ -198,10 +204,22 @@ def _lib():
 
     lib = load_library("int8_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cfgpp_int8_matmul.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
-    lib.cfgpp_int8_ff_geglu.argtypes = [p] * 16 + [i] * 5 + [ctypes.c_float, p]
-    lib.cfgpp_int8_matmul.restype = lib.cfgpp_int8_ff_geglu.restype = i
+    for suffix in _KERNEL_DTYPES.values():
+        mm = getattr(lib, f"cfgpp_int8_matmul{suffix}")
+        ff = getattr(lib, f"cfgpp_int8_ff_geglu{suffix}")
+        mm.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
+        ff.argtypes = [p] * 16 + [i] * 5 + [ctypes.c_float, p]
+        mm.restype = ff.restype = i
     return lib
+
+
+# Suffix of the C entry points' names by activation dtype.
+_KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def _entry(dtype: torch.dtype, name: str):
+    """The C entry point ``name`` for activations of ``dtype``."""
+    return getattr(_lib(), f"cfgpp_{name}{_KERNEL_DTYPES[dtype]}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -220,12 +238,14 @@ def _f32(t: Optional[torch.Tensor], dev, shape, name) -> Optional[torch.Tensor]:
     return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
-def _rows(t: torch.Tensor, dev, width: int, name: str) -> torch.Tensor:
-    """An activation as contiguous, 16-byte aligned bf16 rows [M, width] on
-    ``dev`` (the kernels read the residual two elements at a time)."""
-    if t.device != dev or t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: expected bf16 on {dev}, got {t.dtype} on "
-                         f"{t.device}")
+def _rows(t: torch.Tensor, dev, dtype, width: int,
+          name: str) -> torch.Tensor:
+    """An activation as contiguous, 16-byte aligned rows [M, width] of
+    ``dtype`` on ``dev`` (the kernels read the residual two elements at a
+    time)."""
+    if t.device != dev or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} "
+                         f"on {t.device}")
     t = t.reshape(-1, width)
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
@@ -234,16 +254,18 @@ def _rows(t: torch.Tensor, dev, width: int, name: str) -> torch.Tensor:
 
 def _kernel_args(x, w_q, ln_scale, ln_bias, affine_scale, affine_bias,
                  out_dtype):
-    dev = x.device
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"the kernel writes bf16, not {out_dtype}")
+    dev, dt = x.device, x.dtype
+    if dt not in _KERNEL_DTYPES:
+        raise ValueError(f"x: expected bfloat16 or float32 on {dev}, got {dt}")
+    if out_dtype != dt:
+        raise ValueError(f"the kernel writes x's dtype {dt}, not {out_dtype}")
     n, k = w_q.shape
     if k % 16 or n % 16:
         raise ValueError(f"the kernel takes K and N in multiples of 16; got "
                          f"K={k}, N={n}")
     if w_q.device != dev or not w_q.is_contiguous() or w_q.data_ptr() % 16:
         raise ValueError(f"w_q must be contiguous and 16-byte aligned on {dev}")
-    x2 = _rows(x, dev, k, "x")
+    x2 = _rows(x, dev, dt, k, "x")
     mode, g, b, per = None, None, None, 0
     if ln_scale is not None:
         mode, g, b = "ln", _f32(ln_scale, dev, (k,), "ln_scale"), \
@@ -278,7 +300,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     pre-matmul LayerNorm), ``affine_scale``/``affine_bias`` [B, K] (a
     per-(sample, channel) ``x*s+b``; x must be [B, T, K]), ``bias`` [N] and
     ``residual`` [..., N] in the dequant epilogue.  On a CUDA tensor x and
-    residual are bf16 and so is the output."""
+    residual are both bf16 or both f32, and the output has their dtype."""
     _check_args(x, w_q, w_scale, ln_scale, affine_scale, affine_bias)
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, w_scale, bias, ln_scale, ln_bias,
@@ -311,15 +333,16 @@ def int8_matmul_stages(x: torch.Tensor, w_q: torch.Tensor,
     m = x2.shape[0]
     ws = _f32(w_scale, dev, (n,), "w_scale")
     bs = _f32(bias, dev, (n,), "bias")
-    res = None if residual is None else _rows(residual, dev, n, "residual")
+    res = None if residual is None else _rows(residual, dev, x.dtype, n,
+                                              "residual")
     if res is not None and res.shape[0] != m:
         raise ValueError(f"residual rows {res.shape[0]} != x rows {m}")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().cfgpp_int8_matmul(
+        err = _entry(x.dtype, "int8_matmul")(
             x2.data_ptr(), w_q.data_ptr(), ws.data_ptr(), _ptr(bs), _ptr(g),
             _ptr(b), _ptr(res), out.data_ptr(), xq.data_ptr(), sx.data_ptr(),
             m, n, k, _MODES[mode], per, ln_eps, stream)
@@ -382,10 +405,11 @@ def int8_ff_geglu_stages(x: torch.Tensor, w1_q: torch.Tensor,
     b1 = _f32(bias1, dev, (n2,), "bias1")
     s2 = _f32(w2_scale, dev, (o,), "w2_scale")
     b2 = _f32(bias2, dev, (o,), "bias2")
-    res = None if residual is None else _rows(residual, dev, o, "residual")
+    res = None if residual is None else _rows(residual, dev, x.dtype, o,
+                                              "residual")
     if res is not None and res.shape[0] != m:
         raise ValueError(f"residual rows {res.shape[0]} != x rows {m}")
-    out = torch.empty((m, o), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, o), dtype=x.dtype, device=dev)
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     h = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -393,7 +417,7 @@ def int8_ff_geglu_stages(x: torch.Tensor, w1_q: torch.Tensor,
     sh = torch.empty((m,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().cfgpp_int8_ff_geglu(
+        err = _entry(x.dtype, "int8_ff_geglu")(
             x2.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), _ptr(b1),
             w2_q.data_ptr(), s2.data_ptr(), _ptr(b2), _ptr(g), _ptr(b),
             _ptr(res), out.data_ptr(), xq.data_ptr(), sx.data_ptr(),

@@ -67,48 +67,55 @@ def flash_attention_f32(batch: int, nq: int, kv_len: int, heads: int,
 
 
 def flash_attention_int8(batch: int, nq: int, kv_len: int, heads: int,
-                         head_dim: int) -> Work:
-    """Int8-score attention: q k^T in int8, p v in bf16; the same bytes as
-    `flash_attention` (q and k are quantized on chip)."""
+                         head_dim: int, act: int = BF16) -> Work:
+    """Int8-score attention: q k^T in int8, p v in bf16 (``act`` = F32:
+    f32 activations, p v on the CUDA cores); the same bytes as
+    `flash_attention` in the activations' type (q and k are quantized on
+    chip)."""
     bf16 = flash_attention(batch, nq, kv_len, heads, head_dim)
     half = bf16.bf16_flops // 2
-    return Work(bf16_flops=half, int8_ops=half, bytes=bf16.bytes)
+    nbytes = bf16.bytes * act // BF16
+    if act == F32:
+        return Work(f32_flops=half, int8_ops=half, bytes=nbytes)
+    return Work(bf16_flops=half, int8_ops=half, bytes=nbytes)
 
 
 def int8_matmul(m: int, k: int, n: int, *, ln: bool = False,
                 bias: bool = False, residual: bool = False,
-                affine: int = 0) -> Work:
+                affine: int = 0, act: int = BF16) -> Work:
     """bf16 x [M, K] times int8 w [N, K] -> bf16 [M, N]: 2 M K N int8 ops;
     x, w, its f32 scales, the out, and the optional LayerNorm vectors,
     bias, residual and per-(sample, channel) affine prologue (``affine``:
-    the number of samples)."""
-    nbytes = BF16 * m * k + INT8 * k * n + F32 * n + BF16 * m * n
-    nbytes += F32 * 2 * k * ln + F32 * n * bias + BF16 * m * n * residual
+    the number of samples).  ``act``: bytes per activation element (F32
+    for f32 x, residual and out)."""
+    nbytes = act * m * k + INT8 * k * n + F32 * n + act * m * n
+    nbytes += F32 * 2 * k * ln + F32 * n * bias + act * m * n * residual
     nbytes += F32 * 2 * affine * k
     return Work(int8_ops=2 * m * k * n, bytes=nbytes)
 
 
-def int8_ff_geglu(m: int, c: int) -> Work:
+def int8_ff_geglu(m: int, c: int, act: int = BF16) -> Work:
     """The feed-forward: LayerNorm, x [M, C] @ w1 [C, 8C] (GEGLU value and
     gate), gelu-gated product [M, 4C] @ w2 [4C, C]; both GEMMs in int8.  The
     hidden state is counted as on chip: what must move is x, both weights
     with their scales and biases, the LN vectors, the out and the
-    residual."""
-    first = int8_matmul(m, c, 8 * c, ln=True, bias=True)
-    second = int8_matmul(m, 4 * c, c, bias=True, residual=True)
-    hidden = BF16 * m * 8 * c + BF16 * m * 4 * c   # first's out, second's x
+    residual (``act`` bytes per activation element)."""
+    first = int8_matmul(m, c, 8 * c, ln=True, bias=True, act=act)
+    second = int8_matmul(m, 4 * c, c, bias=True, residual=True, act=act)
+    hidden = act * m * 8 * c + act * m * 4 * c   # first's out, second's x
     return Work(int8_ops=first.int8_ops + second.int8_ops,
                 bytes=first.bytes + second.bytes - hidden)
 
 
 def int8_conv3x3(batch: int, h: int, w: int, c: int, o: int, *,
-                 groupnorm: bool = False, residual: bool = False) -> Work:
+                 groupnorm: bool = False, residual: bool = False,
+                 act: int = BF16) -> Work:
     """3x3 stride-1 'same' conv, NHWC bf16 x, int8 weights [O, 3, 3, C]:
     2 B H W 9 C O int8 ops; x, w and its scales, the bias, the out, and
     the optional per-(sample, channel) GroupNorm coefficients and
-    residual."""
+    residual (``act`` bytes per activation element: F32 for f32)."""
     pixels = batch * h * w
-    nbytes = (BF16 * pixels * c + INT8 * 9 * c * o + F32 * 2 * o
-              + BF16 * pixels * o)
-    nbytes += F32 * 2 * batch * c * groupnorm + BF16 * pixels * o * residual
+    nbytes = (act * pixels * c + INT8 * 9 * c * o + F32 * 2 * o
+              + act * pixels * o)
+    nbytes += F32 * 2 * batch * c * groupnorm + act * pixels * o * residual
     return Work(int8_ops=2 * pixels * 9 * c * o, bytes=nbytes)

@@ -25,7 +25,9 @@ Phases, one status line each; any failure exits non-zero:
    feed-forward's f32 hidden state and its requantize, and each GEMM and
    epilogue against the plain one run from the kernel's own int8 values.
    Beside the int8 GEMMs, ``torch._int_mm`` on the same int8 operands times
-   the bare int8 product as a yardstick for the GEMM core.
+   the bare int8 product as a yardstick for the GEMM core.  Every int8
+   entry point is also held in f32 (f32 activations in and out, its own
+   ``_f32`` row of the table), with the same stage checks.
 3. exact slice: SD-1.5 ``ddim_cfg++``, lambda=0.6, 50 NFE, 512^2, random
    weights from seed 0, bf16, three requests of batch 1 through
    ``DiffusionEngine.sample``.  Checks the images, the kernel launch count
@@ -45,7 +47,10 @@ Phases, one status line each; any failure exits non-zero:
 6. f32: the VAE encode of a 512^2 image (f32 by design) and one UNet call
    of an f32 bundle at 512^2 (``--dtype float32``), each with the f32
    attention kernel against the same modules with the plain attention, and
-   the kernel's launches in each.
+   the kernel's launches in each; then one f32 ``--quant dense`` and one f32
+   ``--quant all`` UNet call with the int8 kernels on f32 activations
+   against the same modules with every kernel's plain version, with the
+   launches of each entry point per call.
 7. summary: a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -92,7 +97,21 @@ KERNEL_REL_TOL = 2e-2
 #   and exp2 against exp differ: max |kernel - plain| <= F32_REL_TOL x
 #   max |plain| ("f32").
 F32_REL_TOL = 1e-4
+# - f32 int8 kernels: without a prologue exact, as in bf16.  With a
+#   LayerNorm prologue the row scale sx differs from the plain one by up to
+#   SX_REL_TOL (the statistics are summed in another order: on the H100 its
+#   amax moves by 1-4 f32 ulps in most rows, with the int8 rows unchanged),
+#   and an f32 output rounds none of that away: 13-19% of the elements then
+#   lie beyond one f32 ulp.  And every int8 level the LayerNorm flips moves
+#   all outputs of its row by more than an f32 ulp (in bf16 mostly less
+#   than one bf16 ulp): 0.4-4.6e-6 of the int8 values flip on the H100,
+#   which moves up to 0.58% of the outputs at K = 320-1280 (0 to 4 flips
+#   per 1e6 values x K rows).  So ("f32ulp") no more
+#   than F32_LN_SHARE of the elements may lie beyond one f32 ulp plus
+#   SX_REL_TOL x max |plain|, none beyond KERNEL_REL_TOL x max |plain|; the
+#   stage checks hold the int8 rows, the scales and every later step.
 ULP_SHARE = 1e-3
+F32_LN_SHARE = 1e-2
 LN_FLIP_SHARE = 1e-4
 SX_REL_TOL = 1e-6
 # Model vs model: the same bf16 network with the kernels or the plain
@@ -128,6 +147,17 @@ LAUNCHES_PER_REQUEST = UNET_SITES_PER_CALL * NFE + 1   # + the VAE mid-block
 # The f32 path's attention launches: one UNet call runs every transformer
 # site through flash_attention_hd (16 self, 16 cross), the encoder one.
 F32_LAUNCHES = {"vae encode": 1, "unet eps": UNET_SITES_PER_CALL}
+# One f32 int8 UNet call (cross k/v computed in the call): the per-request
+# launches of the bf16 int8 slices below, for one of the NFE calls plus the
+# cross k/v of the request.
+F32_INT8_LAUNCHES_PER_CALL = {
+    "dense": {"int8_matmul": 16 * 6 + 16 * 2, "int8_ff_geglu": 16,
+              "flash_attention_qkv_packed": 16, "flash_attention_hd": 16},
+    "all": {"int8_matmul": 16 * 6 + 16 * 2 + 14, "int8_ff_geglu": 16,
+            "int8_conv3x3": 4, "flash_attention_qkv_packed_int8": 5,
+            "flash_attention_qkv_packed": 11, "flash_attention_hd": 16,
+            "flash_attention_hd_int8": 0},
+}
 # The int8 slice, per request (16 transformer blocks, one per transformer):
 # int8_matmul: to_qkv, attn1 to_out, to_q, attn2 to_out, proj_in, proj_out
 # per block and UNet call, + the cross k/v of every block once per request;
@@ -264,13 +294,14 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def beyond_one_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Share of the elements of ``got`` more than one bf16 ulp of ``want``
-    from it."""
+def beyond_one_ulp(got: torch.Tensor, want: torch.Tensor,
+                   mantissa_bits: int = 7, atol: float = 0.0) -> float:
+    """Share of the elements of ``got`` more than one ulp (bf16: 7
+    mantissa bits, f32: 23) plus ``atol`` of ``want`` from it."""
     got, want = got.float(), want.float()
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -100)))
-                     - 7)
-    return ((got - want).abs() > ulp).float().mean().item()
+                     - mantissa_bits)
+    return ((got - want).abs() > ulp + atol).float().mean().item()
 
 
 def build_all(build) -> None:
@@ -325,8 +356,8 @@ class KernelTable:
 
     def measure(self, kernel_name, site, desc, kernel, ref, plain, calls,
                 work, rule="rel", library=None, others=None):
-        """``rule``: "rel", "f32", "exact" or "ulp" (see the tolerances
-        above).
+        """``rule``: "rel", "f32", "exact", "ulp" or "f32ulp" (see the
+        tolerances above).
         ``work``: the `roofline.Work` of one call.  ``library``: the one
         PyTorch call that computes the same function, timed beside the
         kernel (never used by the port).  ``others``: {name: fn} of further
@@ -338,14 +369,21 @@ class KernelTable:
         want = ref()
         err = (out.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
-        off = beyond_one_ulp(out, want)
+        f32_out = out.dtype == torch.float32
+        off = beyond_one_ulp(out, want, 23 if f32_out else 7)
         ok = bool(torch.isfinite(out).all())
         if rule == "exact":
             ok, tol = ok and err == 0.0, "tol: exact"
         elif rule == "ulp":
             ok = ok and off <= ULP_SHARE and err <= KERNEL_REL_TOL * scale
-            tol = (f"beyond one bf16 ulp {off:.2e} of elements, tol {ULP_SHARE};"
-                   f" max tol {KERNEL_REL_TOL} x {scale:.3e}")
+            tol = (f"beyond one bf16 ulp {off:.2e} of elements, tol"
+                   f" {ULP_SHARE}; max tol {KERNEL_REL_TOL} x {scale:.3e}")
+        elif rule == "f32ulp":
+            beyond = beyond_one_ulp(out, want, 23, SX_REL_TOL * scale)
+            ok = ok and beyond <= F32_LN_SHARE and err <= KERNEL_REL_TOL * scale
+            tol = (f"beyond one f32 ulp {off:.2e} of elements, beyond one ulp"
+                   f" + {SX_REL_TOL} x max {beyond:.2e}, tol {F32_LN_SHARE}; max tol"
+                   f" {KERNEL_REL_TOL} x {scale:.3e}")
         else:
             rel = F32_REL_TOL if rule == "f32" else KERNEL_REL_TOL
             ok, tol = ok and err <= rel * scale, f"tol {rel} x {scale:.3e}"
@@ -414,7 +452,7 @@ def check_matmul_stages(tk, site, x, wq, ws, kw) -> None:
     want_xq, want_sx = tk.quantize_rows(tk.prologue_reference(x, **pro))
     rows = compare_rows(site, xq, sx, want_xq, want_sx, "ln_scale" in kw)
     epi = tk.dequant_reference(xq, sx, wq, ws, kw.get("bias"),
-                               kw.get("residual")).bfloat16()
+                               kw.get("residual")).to(out.dtype)
     epi_err = (out.float() - epi.float()).abs().max().item()
     print(f"    stages: {rows}; GEMM + epilogue from them max_abs_err"
           f" {epi_err:.3e} (tol: exact)", flush=True)
@@ -440,7 +478,7 @@ def check_ff_stages(tk, site, args, kw) -> None:
     check(hflips == 0 and torch.equal(sh, want_sh),
           f"{site}: hidden requantize differs from quantize_rows of f32 h")
     epi = tk.dequant_reference(hq, sh, w2q, w2s, b2,
-                               kw.get("residual")).bfloat16()
+                               kw.get("residual")).to(out.dtype)
     epi_err = (out.float() - epi.float()).abs().max().item()
     print(f"    stages: {rows}; f32 hidden max_abs_err {h_err:.3e} (tol:"
           f" exact); hidden requantize {hflips:.2e} flipped (tol:"
@@ -461,7 +499,7 @@ def check_conv_stages(tc, site, x, wq, ws, kw) -> None:
         tc.scale_window_rows(h, w, c, wq.shape[0]))
     rows = compare_rows(site, xq, sx, want_xq, want_sx, "gn_scale" in kw)
     epi = tc.window_conv_reference(xq, sx, wq, ws, kw.get("bias"),
-                                   kw.get("residual"), b).bfloat16()
+                                   kw.get("residual"), b).to(out.dtype)
     epi_err = (out.float() - epi.float()).abs().max().item()
     print(f"    stages: {rows}; GEMM + epilogue from them max_abs_err"
           f" {epi_err:.3e} (tol: exact)", flush=True)
@@ -537,7 +575,7 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
             rl.flash_attention_f32(b, n, rows, heads, c // heads), rule="f32",
             library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
 
-    for site, shape, heads, _ in PACKED_CASES:
+    for site, shape, heads, calls in PACKED_CASES:   # f32 --quant dense's
         qkv = randn(*shape)
         b, n, c3 = shape
         qh, kh, vh = (sdpa_heads(x, heads, n)
@@ -547,95 +585,118 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
             f"qkv {list(shape)} f32 heads {heads} d {c3 // 3 // heads}",
             lambda: fa.flash_attention_qkv_packed(qkv, heads),
             lambda: fa.flash_attention_qkv_packed_reference(qkv, heads),
-            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), 0,
+            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), calls,
             rl.flash_attention_f32(b, n, n, heads, c3 // 3 // heads),
             rule="f32",
             library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
+    # Each int8 entry point in bf16, then in f32 (its "_f32" table rows).
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
+                         quantize_conv_kernel_int8, table, randn, dt, sfx)
+
+
+def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
+                     quantize_conv_kernel_int8, table, randn, dt, sfx) -> None:
+    """Phase 2's rows of the int8 kernels with activations of dtype ``dt``
+    (bf16, or f32 under the kernel names + ``sfx``).  The ``torch._int_mm``
+    and bf16 dequantized-conv yardsticks are timed beside the bf16 rows
+    only: they do not depend on the activations' dtype."""
+    bf16 = dt == torch.bfloat16
+    act = rl.BF16 if bf16 else rl.F32
+    out = {} if bf16 else {"out_dtype": dt}
 
     def weights(k, n):
         wq, ws = quantize_kernel_int8(randn(n, k, scale=k ** -0.5))
         return wq, ws, randn(n, scale=0.1)
 
     for site, (b, t, k), n, mode, calls in INT8_MATMUL_CASES:
-        x = randn(b, t, k).bfloat16()
+        x = randn(b, t, k).to(dt)
         wq, ws, bias = weights(k, n)
-        kw = {}
+        kw = dict(out)
         if mode == "ln":
-            kw = dict(ln_scale=1.0 + randn(k, scale=0.1),
+            kw.update(ln_scale=1.0 + randn(k, scale=0.1),
                       ln_bias=randn(k, scale=0.1))
         elif mode in ("bias_res", "bias"):
             kw["bias"] = bias
             if mode == "bias_res":
-                kw["residual"] = randn(b, t, n).bfloat16()
+                kw["residual"] = randn(b, t, n).to(dt)
         elif mode == "affine":
-            kw = dict(affine_scale=randn(b, k), affine_bias=randn(b, k),
+            kw.update(affine_scale=randn(b, k), affine_bias=randn(b, k),
                       bias=bias)
         work = rl.int8_matmul(b * t, k, n, ln=mode == "ln",
                               bias="bias" in kw, residual="residual" in kw,
-                              affine=b if mode == "affine" else 0)
+                              affine=b if mode == "affine" else 0, act=act)
         xq = tk.int8_matmul_stages(x, wq, ws, **kw)[1].reshape(-1, k)
         table.measure(
-            "int8_matmul", site, f"x {[b, t, k]} N {n} {mode}",
+            "int8_matmul" + sfx, site, f"x {[b, t, k]} {dt} N {n} {mode}",
             lambda: tk.int8_matmul(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw), calls, work,
-            rule="ulp" if mode == "ln" else "exact",
-            others={"int8_product_cublaslt": lambda: torch._int_mm(xq,
-                                                                   wq.t())})
+            rule=("ulp" if bf16 else "f32ulp") if mode == "ln" else "exact",
+            others={"int8_product_cublaslt": lambda: torch._int_mm(
+                xq, wq.t())} if bf16 else None)
         check_matmul_stages(tk, site, x, wq, ws, kw)
 
     for site, (b, t, c), calls in INT8_FF_CASES:
-        x = randn(b, t, c).bfloat16()
+        x = randn(b, t, c).to(dt)
         w1q, w1s, b1 = weights(c, 8 * c)
         w2q, w2s, b2 = weights(4 * c, c)
-        kw = dict(ln_scale=1.0 + randn(c, scale=0.1),
+        kw = dict(out, ln_scale=1.0 + randn(c, scale=0.1),
                   ln_bias=randn(c, scale=0.1),
-                  residual=randn(b, t, c).bfloat16())
+                  residual=randn(b, t, c).to(dt))
         args = (x, w1q, w1s, b1, w2q, w2s, b2)
         _, xq, _, _, hq, _ = tk.int8_ff_geglu_stages(*args, **kw)
         xq, hq = xq.reshape(-1, c), hq.reshape(-1, 4 * c)
         table.measure(
-            "int8_ff_geglu", site, f"x {[b, t, c]} N {4 * c} O {c} ln res",
+            "int8_ff_geglu" + sfx, site,
+            f"x {[b, t, c]} {dt} N {4 * c} O {c} ln res",
             lambda: tk.int8_ff_geglu(*args, **kw),
             lambda: tk.int8_ff_geglu_reference(*args, **kw),
             lambda: tk.int8_ff_geglu_reference(*args, **kw), calls,
-            rl.int8_ff_geglu(b * t, c), rule="ulp",
+            rl.int8_ff_geglu(b * t, c, act=act),
+            rule="ulp" if bf16 else "f32ulp",
             others={"int8_product_cublaslt": lambda: (
-                torch._int_mm(xq, w1q.t()), torch._int_mm(hq, w2q.t()))})
+                torch._int_mm(xq, w1q.t()), torch._int_mm(hq, w2q.t()))}
+            if bf16 else None)
         check_ff_stages(tk, site, args, kw)
 
     for site, (b, h, w, c), o, gn, res, br, calls in CONV_CASES:
         check(tc.scale_window_rows(h, w, c, o) == br
               and tc.int8_conv3x3_supported((b, h, w, c), (1, 1), 1, o),
               f"int8_conv3x3 {site}: not a kernel site with br {br}")
-        x = randn(b, h, w, c).bfloat16()
+        x = randn(b, h, w, c).to(dt)
         wq, ws = quantize_conv_kernel_int8(randn(o, c, 3, 3,
                                                  scale=(9 * c) ** -0.5))
-        kw = {"bias": randn(o, scale=0.1)}
+        kw = dict(out, bias=randn(o, scale=0.1))
         if gn:
             kw.update(gn_scale=1.0 + randn(b, c, scale=0.2),
                       gn_bias=randn(b, c, scale=0.3))
         if res:
-            kw["residual"] = randn(b, h, w, o).bfloat16()
+            kw["residual"] = randn(b, h, w, o).to(dt)
         wf = (wq.float() * ws[:, None, None, None]).bfloat16().permute(
             0, 3, 1, 2)
         xc = x.permute(0, 3, 1, 2)
         table.measure(
-            "int8_conv3x3", site,
-            f"x {[b, h, w, c]} O {o} br {br}{' gn' if gn else ''}"
+            "int8_conv3x3" + sfx, site,
+            f"x {[b, h, w, c]} {dt} O {o} br {br}{' gn' if gn else ''}"
             f"{' res' if res else ''}",
             lambda: tc.int8_conv3x3(x, wq, ws, **kw),
             lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw),
             lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw), calls,
-            rl.int8_conv3x3(b, h, w, c, o, groupnorm=gn, residual=res),
-            rule="ulp" if gn else "exact",
+            rl.int8_conv3x3(b, h, w, c, o, groupnorm=gn, residual=res,
+                            act=act),
+            rule=("ulp" if bf16 else "f32ulp") if gn else "exact",
             others={"bf16_dequant_conv": lambda: torch.nn.functional.conv2d(
-                xc, wf, padding=1)})
+                xc, wf, padding=1)} if bf16 else None)
         check_conv_stages(tc, site, x, wq, ws, kw)
 
+    # The int8-score attention: bf16 is held to KERNEL_REL_TOL (p rounded to
+    # bf16 on both sides, in another order), f32 to F32_REL_TOL (p not
+    # rounded); the plain version's f32 output is the reference for both.
     for site, shape, heads, packed, calls in INT8_ATTENTION_CASES:
         if packed:
-            qkv = randn(*shape).bfloat16()
+            qkv = randn(*shape).to(dt)
             q, k, v = qkv.split(shape[2] // 3, dim=2)
             name = "flash_attention_qkv_packed_int8"
             run = (lambda: fa.flash_attention_qkv_packed_int8(qkv, heads))
@@ -643,25 +704,27 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
                 qkv, heads, out_dtype=torch.float32))
             plain = (lambda: fa.flash_attention_qkv_packed_int8_reference(
                 qkv, heads))
-            bf16 = (lambda: fa.flash_attention_qkv_packed(qkv, heads))
+            exact = (lambda: fa.flash_attention_qkv_packed(qkv, heads))
             stages = fa.flash_attention_qkv_packed_int8_stages(qkv, heads)
             d = shape[2] // 3 // heads
         else:
-            q, k, v = (randn(*shape).bfloat16() for _ in range(3))
+            q, k, v = (randn(*shape).to(dt) for _ in range(3))
             name = "flash_attention_hd_int8"
             run = (lambda: fa.flash_attention_hd_int8(q, k, v, heads))
             ref = (lambda: fa.flash_attention_hd_int8_reference(
                 q, k, v, heads, out_dtype=torch.float32))
             plain = (lambda: fa.flash_attention_hd_int8_reference(q, k, v,
                                                                   heads))
-            bf16 = (lambda: fa.flash_attention_hd(q, k, v, heads))
+            exact = (lambda: fa.flash_attention_hd(q, k, v, heads))
             stages = fa.flash_attention_hd_int8_stages(q, k, v, heads)
             d = shape[2] // heads
-        table.measure(name, site, f"{list(shape)} heads {heads} d {d}", run,
-                      ref, plain, calls,
+        table.measure(name + sfx, site,
+                      f"{list(shape)} {dt} heads {heads} d {d}", run, ref,
+                      plain, calls,
                       rl.flash_attention_int8(shape[0], shape[1], shape[1],
-                                              heads, d),
-                      others={"bf16_kernel": bf16})
+                                              heads, d, act=act),
+                      rule="rel" if bf16 else "f32",
+                      others={("bf16" if bf16 else "f32") + "_kernel": exact})
         check_int8_score_stages(fa, site, q, k, stages)
 
 
@@ -700,11 +763,14 @@ def phase_models_vs_plain_attention(engine, fa) -> None:
         check(err <= MODEL_REL_L2_TOL, f"{what}: kernel path disagrees")
 
 
-def phase_f32(fa, card: str) -> dict:
+def phase_f32(fa, tk, tc, card: str) -> dict:
     """An f32 bundle: the VAE encode of a 512^2 image and one UNet call at
     512^2 (batch 2B = 2), each with the f32 kernel (its launches counted
-    from 0) and with the plain attention in its place.  Returns the
-    launches."""
+    from 0) and with the plain attention in its place; then one f32 UNet
+    call with ``--quant dense`` and one with ``--quant all``, each with the
+    kernels (every count set to 0 just before it) against the same modules
+    with every kernel's plain version.  Returns the launches of the f32
+    path under the f32 kernels' names."""
     from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
     from cfgpp_tpu_torch.models import attention
     from cfgpp_tpu_torch.models.unet import precompute_cross_kv
@@ -745,8 +811,46 @@ def phase_f32(fa, card: str) -> dict:
               f" {F32_LAUNCHES[what]}")
         check(err <= F32_MODEL_REL_L2_TOL, f"f32 {what}: kernel path disagrees")
         launches += n
-    return {"flash_attention_hd_f32": launches,
-            "flash_attention_qkv_packed_f32": fa.packed_launches}
+    out = {"flash_attention_hd_f32": launches,
+           "flash_attention_qkv_packed_f32": fa.packed_launches}
+
+    reads = counters(fa, tk, tc)
+    for mode, tol in (("dense", INT8_MODEL_REL_L2_TOL),
+                      ("all", INT8_ALL_MODEL_REL_L2_TOL)):
+        unet_q = bundle.quantized(mode).unet
+
+        def run():
+            with torch.inference_mode():
+                return unet_q(z, t, ctx,
+                              cross_kv=precompute_cross_kv(unet_q, ctx))
+
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {name: read() for name, read in reads.items()}
+        with plain_kernels(fa, tk, tc):
+            want = run()
+        err = rel_l2(got, want)
+        expected = {name: F32_INT8_LAUNCHES_PER_CALL[mode].get(name, 0)
+                    for name in reads}
+        print(f"  f32 --quant {mode} unet eps: {tuple(got.shape)} {got.dtype}"
+              f" in {seconds:.3f} s, launches {counts}; kernels vs plain"
+              f" versions rel_l2 {err:.3e} (tol {tol}) [{card}]", flush=True)
+        check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+              f"f32 --quant {mode} unet eps: output")
+        check(counts == expected, f"f32 --quant {mode}: launches {counts},"
+              f" expected {expected}")
+        check(err <= tol, f"f32 --quant {mode} unet eps: kernel path"
+              " disagrees")
+        for name, n in counts.items():
+            out[name + "_f32"] = out.get(name + "_f32", 0) + n
+        del unet_q
+        torch.cuda.empty_cache()
+    return out
 
 
 def plain_kernels(fa, tk, tc):
@@ -901,6 +1005,18 @@ KERNEL_SOURCES = {
                       "cfgpp_tpu/kernels/int8_matmul.py:305", "all"),
     "int8_conv3x3": ("cfgpp_tpu_torch/csrc/int8_conv.cu",
                      "cfgpp_tpu/kernels/int8_conv.py:225", "all"),
+    "int8_matmul_f32": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
+                        "cfgpp_tpu/kernels/int8_matmul.py:163", "f32"),
+    "int8_ff_geglu_f32": ("cfgpp_tpu_torch/csrc/int8_matmul.cu",
+                          "cfgpp_tpu/kernels/int8_matmul.py:305", "f32"),
+    "int8_conv3x3_f32": ("cfgpp_tpu_torch/csrc/int8_conv.cu",
+                         "cfgpp_tpu/kernels/int8_conv.py:225", "f32"),
+    "flash_attention_hd_int8_f32": (
+        "cfgpp_tpu_torch/csrc/flash_attention_int8.cu",
+        "cfgpp_tpu/kernels/flash_attention.py:470", "f32"),
+    "flash_attention_qkv_packed_int8_f32": (
+        "cfgpp_tpu_torch/csrc/flash_attention_int8.cu",
+        "cfgpp_tpu/kernels/flash_attention.py:544", "f32"),
 }
 
 
@@ -976,9 +1092,10 @@ def main() -> None:
     del engine_a, engine, bundle
     torch.cuda.empty_cache()
 
-    launches["f32"] = phase_f32(fa, card)
+    launches["f32"] = phase_f32(fa, tk, tc, card)
     print("phase 6 ok: f32 VAE encode and UNet call on the f32 attention"
-          " kernel", flush=True)
+          " kernel; f32 --quant dense and --quant all UNet calls on the int8"
+          " kernels", flush=True)
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():

@@ -125,10 +125,6 @@ def test_kernel_inputs_reject_mixed_and_other_dtypes(odd):
     with pytest.raises(ValueError, match="expected bfloat16 or float32"):
         fa._check_kernel_inputs(8, 320, q=torch.zeros(2, 16, 320,
                                                       dtype=torch.float16))
-    # the int8-score kernel takes bf16 only
-    with pytest.raises(ValueError, match="expected bfloat16 on"):
-        fa._check_kernel_inputs(8, 320, dtypes=(torch.bfloat16,),
-                                q=torch.zeros(2, 16, 320))
 
 
 def _args(*argv):
@@ -138,20 +134,34 @@ def _args(*argv):
 
 
 def test_cli_takes_float32_on_cuda_and_refuses_it_with_quant(monkeypatch):
+    """``--quant dense|all`` with ``--dtype float32`` on a CUDA device is no
+    longer refused: it builds the f32 bundle on that device and quantizes
+    it in the requested mode (the int8 kernels take f32 activations)."""
     args = _args("--device", "cuda", "--dtype", "float32", "--model",
                  "tiny_sd")
     assert (args.device, args.dtype, args.quant) == ("cuda", "float32", None)
-    built = []
-    monkeypatch.setattr(common.ModelBundle, "random_init",
-                        lambda *a, **k: built.append(k))
+    built, quantized = [], []
+
+    class Bundle:
+        def quantized(self, mode):
+            quantized.append(mode)
+            return self
+
+    def random_init(name, seed, dtype, device):
+        built.append((dtype, device))
+        return Bundle()
+
+    monkeypatch.setattr(common.ModelBundle, "random_init", random_init)
+    monkeypatch.setattr(common, "DiffusionEngine",
+                        lambda bundle, solver, nfe: (bundle, solver, nfe))
     for quant in ("dense", "all"):
-        with pytest.raises(ValueError, match="--quant needs --dtype bfloat16"):
-            common.build_engine(_args("--device", "cuda", "--dtype",
-                                      "float32", "--quant", quant))
-        with pytest.raises(ValueError, match="--quant needs --dtype bfloat16"):
-            common.build_engine(_args("--device", "cuda:0", "--dtype",
-                                      "float32", "--quant", quant))
-    assert not built                 # refused before any model was made
+        for device in ("cuda", "cuda:0"):
+            bundle, _, _ = common.build_engine(_args(
+                "--device", device, "--dtype", "float32", "--quant", quant))
+            assert isinstance(bundle, Bundle)
+            assert built[-1] == (torch.float32, device)
+            assert quantized[-1] == quant
+    assert quantized == ["dense", "dense", "all", "all"]
 
 
 def test_cli_float32_on_cuda_reaches_the_bundle(monkeypatch):
