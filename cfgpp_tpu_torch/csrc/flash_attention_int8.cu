@@ -1,5 +1,6 @@
-// Int8-score flash-attention forward for Hopper (sm_90a), bf16 or f32 in and
-// out.
+// Int8-score flash-attention forward for Hopper (sm_90a), bf16 or f32 in;
+// the output rounded to bf16 as the TPU kernels write it (out_shape bf16),
+// stored as bf16 or, for f32 inputs, widened back to f32.
 //
 // Replaces the Pallas TPU kernels cfgpp_tpu/kernels/flash_attention.py:
 // flash_attention_hd_int8 and flash_attention_qkv_packed_int8, both with the
@@ -141,6 +142,11 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+// The output: one rounding to bf16 whatever T is (p above stays in T).
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_out(float* p, float v) {
+  *p = __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // |k| max over the kv rows of one (batch, head), split over gridDim.y blocks.
 template <int D, typename T>
@@ -409,7 +415,7 @@ flash_fwd_int8(const T* __restrict__ q, const T* __restrict__ k,
   T* og = o + (int64_t(b) * nq + q0) * hd + int64_t(h) * D;
   for (int i = threadIdx.x; i < q_rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    store_f(og + r * hd + c, os[r * P::LDO + c] / fmaxf(ls[r], 1e-37f));
+    store_out(og + r * hd + c, os[r * P::LDO + c] / fmaxf(ls[r], 1e-37f));
   }
 }
 
@@ -464,7 +470,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // is taken over all nkv rows.  kamax: scratch, 4 bytes x batch*heads.
 // qq/sq/kq/sk: the stage outputs (see Stages) or null.  q_scale:
 // head_dim^-1/2 * log2(e) as f32.  Returns a cudaError_t (0 on success).
-// The `_f32` entry points take q, k, v and o in f32 (p is then not rounded).
+// The `_f32` entry points take q, k, v and o in f32 (p is then not rounded;
+// o holds bf16-rounded values, as the TPU kernel writes bf16).
 extern "C" int cfgpp_flash_attention_hd_int8(
     const void* q, const void* k, const void* v, void* o, void* kamax, void* qq,
     void* sq, void* kq, void* sk, int batch, int nq, int nkv, int heads,

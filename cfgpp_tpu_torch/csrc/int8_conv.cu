@@ -9,12 +9,14 @@
 // rounded half to even and clipped to +-127; nine shifted int8 x int8
 // products with int32 accumulation against per-output-channel int8 weights;
 // the dequant (acc*sx)*ws, then + bias, + residual in f32, one rounding to
-// bf16 (none for f32 activations).  Every f32 step uses the _rn intrinsics so that nvcc contracts
+// bf16, the TPU kernel's output dtype whatever it reads (for f32
+// activations stored widened back to f32, exactly JAX's bf16 result cast to
+// f32).  Every f32 step uses the _rn intrinsics so that nvcc contracts
 // nothing into an fma: the plain PyTorch version (kernels/int8_conv.py)
 // rounds each step on its own.
 //
 // Layouts: x [B, H, W, C] and residual/out [B, H, W, O], all bf16 or all
-// f32 (the `_f32` entry point; the TPU kernel takes either), contiguous NHWC
+// f32 (the `_f32` entry point; the TPU kernel reads either), contiguous NHWC
 // (the port's NCHW channels_last memory); w int8
 // [O, 3, 3, C], so each tap's 16-channel slice of an output channel is one
 // 16-byte load.
@@ -98,7 +100,9 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(float* p, float v) {
+  *p = __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // silu(x*g + b) as the plain version computes it: x*g, + b, then
 // v * sigmoid(v) with sigmoid = 1 / (1 + exp(-v)) (torch's formula).

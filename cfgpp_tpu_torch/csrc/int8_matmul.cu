@@ -7,10 +7,11 @@
 // x * (1/sx), sx = max(amax, 1e-6) * (1/127), round half to even, clip to
 // +-127; an int8 x int8 dot with int32 accumulation against per-output-row
 // int8 weights (torch layout w [N, K]); the rank-1 dequant acc*sx*sw, then
-// + bias, + residual in f32, one rounding to bf16 (none for f32 activations,
-// below).  Every f32 step uses the
-// _rn intrinsics so that nvcc contracts nothing into an fma: the plain
-// PyTorch version (kernels/int8_matmul.py) rounds each step on its own.
+// + bias, + residual in f32, one rounding to bf16 (the TPU kernels' output
+// dtype whatever they read; for f32 activations see below).  Every f32 step
+// uses the _rn intrinsics so that nvcc contracts nothing into an fma: the
+// plain PyTorch version (kernels/int8_matmul.py) rounds each step on its
+// own.
 //
 // What bounds it on the H100: at the slice's shapes (M = 128..8192 rows,
 // K = 320..5120, N = 320..5120) the int8 tensor-core work is small
@@ -56,10 +57,13 @@
 //   registers and is stored as float2.
 //
 // Activations: x, the residual and the output are all bf16 or all f32 (the
-// `_f32` entry points), as the TPU kernels take either and write o_ref's
-// dtype.  Only the quantize pre-pass and the epilogue see that type: the
-// GEMM core reads int8.  In f32 the epilogue rounds nothing after its _rn
-// steps, so the output equals the plain version's f32 result.
+// `_f32` entry points).  The TPU kernels read either but always write bf16
+// (out_shape bf16), which the JAX layers then cast to the module's dtype.
+// So the f32 epilogue rounds its final value once to bf16, as the bf16 one
+// does, and stores it widened to f32: exactly JAX's bf16 write followed by
+// .astype(float32).  Only the quantize pre-pass and the epilogue see the
+// activations' type: the GEMM core reads int8.  The FF's f32 hidden state
+// is not an output and is not rounded.
 //
 // int8_ff_geglu: the requantize scale of a hidden row needs the absmax over
 // all N before the second dot, and the TPU kernel quantizes the hidden row
@@ -101,8 +105,8 @@ __device__ __forceinline__ float load_f(const bf16* p, int64_t i) {
 }
 __device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
 
-// Two adjacent activations as f32, and two f32 values stored as T (bf16:
-// one rounding each; f32: as they are).
+// Two adjacent activations as f32, and two f32 outputs stored as T: each
+// rounded once to bf16, kept as bf16 or widened back to f32.
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -113,7 +117,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  *reinterpret_cast<float2*>(p) = __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
 // One warp per row: optional prologue, absmax, quantize.  The prologue is

@@ -13,7 +13,8 @@ from the kernels: a tensor they do not take raises.
 `flash_attention_hd_int8` and `flash_attention_qkv_packed_int8` are the
 int8-score counterparts (the score dot in int8, per-row q scales and one
 scalar k scale per (batch, head); p rounded to v's dtype and p@v in it:
-bf16, or f32 for f32 inputs), with the hand-written kernel in
+bf16, or f32 for f32 inputs; the output rounded to bf16, the TPU kernels'
+output dtype, then held in ``out_dtype``), with the hand-written kernel in
 ``cfgpp_tpu_torch/csrc/flash_attention_int8.cu`` (both dtypes) and the plain
 versions `flash_attention_hd_int8_reference` /
 `flash_attention_qkv_packed_int8_reference`.  `int8_score_applies` says
@@ -294,11 +295,21 @@ def flash_attention_hd_int8_reference(q: torch.Tensor, k: torch.Tensor,
                                       kv_len: Optional[int] = None,
                                       out_dtype: Optional[torch.dtype] = None
                                       ) -> torch.Tensor:
-    """Plain PyTorch version of `flash_attention_hd_int8`: exact int q k^T
-    (f64), ``s = acc * (sq * (sk * q_scale))``, kv rows at or past ``kv_len``
-    masked, ``p = exp2(s)`` in v's dtype, ``(p@v) / max(sum p, 1e-37)``.
+    """Plain PyTorch version of `flash_attention_hd_int8`:
+    `int8_score_attention_f32` rounded to bf16 as the TPU kernel writes it.
     Returns ``out_dtype`` (default: q's dtype)."""
     n = _check_shapes(q, k, v, num_heads, kv_len)
+    return int8_score_attention_f32(q, k, v, num_heads, n).bfloat16().to(
+        out_dtype or q.dtype)
+
+
+def int8_score_attention_f32(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, num_heads: int,
+                             n: int) -> torch.Tensor:
+    """The int8-score attention's f32 result before its bf16 write: exact
+    int q k^T (f64), ``s = acc * (sq * (sk * q_scale))``, kv rows at or past
+    ``n`` masked, ``p = exp2(s)`` in v's dtype, ``(p@v) / max(sum p,
+    1e-37)``."""
     b, nq, hd = q.shape
     nkv, d = k.shape[1], hd // num_heads
     qq, sq, kq, sk = quantize_qk_reference(q, k, num_heads)
@@ -312,7 +323,7 @@ def flash_attention_hd_int8_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp2(s).to(v.dtype).float()
     vh = v.float().reshape(b, nkv, num_heads, d).transpose(1, 2)
     out = (p @ vh) / p.sum(-1, keepdim=True).clamp_min(1e-37)
-    return out.transpose(1, 2).reshape(b, nq, hd).to(out_dtype or q.dtype)
+    return out.transpose(1, 2).reshape(b, nq, hd)
 
 
 def flash_attention_qkv_packed_int8_reference(

@@ -17,7 +17,8 @@ beyond each sample's edge are set back to zero; one activation scale per
 ``sx = max(amax, 1e-6) * (1/127)``; ``round(x * (1/sx))`` half to even,
 clipped to +-127; nine shifted int8 products with exact int32 accumulation
 against per-output-channel int8 weights; the dequant ``(acc*sx)*w_scale``,
-then ``+ bias`` and ``+ residual`` in f32, one rounding to ``out_dtype``.
+then ``+ bias`` and ``+ residual`` in f32, one rounding to bf16 (the TPU
+kernel's output dtype, whatever it reads), then ``.to(out_dtype)``.
 
 Layouts: x [B, H, W, C] and residual/out [B, H, W, O] (the JAX package's
 NHWC; the port's NCHW channels_last tensors are this memory seen through
@@ -26,9 +27,10 @@ dimension contiguous, so a tap's 16-channel slice is one 16-byte load) with
 one f32 scale per output channel.
 
 On a CUDA tensor x, the residual and the output are all bf16 or all f32
-(the TPU kernel takes either); x's dtype picks the entry point
+(the TPU kernel reads either); x's dtype picks the entry point
 (``cfgpp_int8_conv3x3`` or ``cfgpp_int8_conv3x3_f32``) and ``out_dtype``
-must equal it.
+must equal it.  An f32 output holds bf16-rounded values, exactly what JAX's
+bf16 result cast to f32 holds.
 
 `int8_conv3x3_stages` launches the same kernel and also returns the int8
 windows and their scales, so that a check can hold each stage against
@@ -232,7 +234,7 @@ def int8_conv3x3_reference(x: torch.Tensor, w_q: torch.Tensor,
     xq, sx = conv_windows_reference(
         conv_prologue_reference(x, gn_scale, gn_bias), br)
     return window_conv_reference(xq, sx, w_q, w_scale, bias, residual,
-                                 x.shape[0]).to(out_dtype)
+                                 x.shape[0]).bfloat16().to(out_dtype)
 
 
 # ----------------------------------------------------------------------- kernel

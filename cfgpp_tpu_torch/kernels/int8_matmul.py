@@ -13,14 +13,16 @@ tensor they do not take raises.
 The recipe is the TPU kernels' (per-output-channel int8 weights; per-row
 dynamic activation absmax, ``x * (1/sx)`` with ``sx = max(amax, 1e-6) / 127``,
 round half to even, clip to +-127; int32 accumulation; rank-1 dequant;
-f32 bias and residual before the one rounding to ``out_dtype``).  Weights
-are in torch layout: ``w_q`` int8 [N, K], one f32 scale per output row.
+f32 bias and residual before the one rounding to bf16, the TPU kernels'
+output dtype whatever they read, then ``.to(out_dtype)``).  Weights are in
+torch layout: ``w_q`` int8 [N, K], one f32 scale per output row.
 
 On a CUDA tensor the activations (x, the residual and the output) are all
-bf16 or all f32, as the TPU kernels take either: x's dtype picks the
+bf16 or all f32, as the TPU kernels read either: x's dtype picks the
 kernels' entry points (``cfgpp_int8_matmul`` or ``cfgpp_int8_matmul_f32``,
 and the same for the feed-forward), ``out_dtype`` must equal it, and
-nothing is converted on the way in.
+nothing is converted on the way in.  An f32 output holds bf16-rounded
+values, exactly what JAX's bf16 result cast to f32 holds.
 
 `int8_matmul_stages` and `int8_ff_geglu_stages` launch the same kernels
 and also return what the kernel computed on the way (the quantized rows;
@@ -160,7 +162,7 @@ def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
     xq, sx = quantize_rows(prologue_reference(
         x, ln_scale, ln_bias, ln_eps, affine_scale, affine_bias))
     return dequant_reference(xq, sx, w_q, w_scale, bias,
-                             residual).to(out_dtype)
+                             residual).bfloat16().to(out_dtype)
 
 
 def int8_ff_geglu_reference(x: torch.Tensor, w1_q: torch.Tensor,
@@ -181,7 +183,7 @@ def int8_ff_geglu_reference(x: torch.Tensor, w1_q: torch.Tensor,
     hq, sh = quantize_rows(geglu_hidden_reference(xq, sx, w1_q, w1_scale,
                                                   bias1))
     return dequant_reference(hq, sh, w2_q, w2_scale, bias2,
-                             residual).to(out_dtype)
+                             residual).bfloat16().to(out_dtype)
 
 
 def _check_ff_args(x, w1_q, w1_scale, w2_q, w2_scale):

@@ -15,17 +15,24 @@ Weights: the port's quantizer against ``quantize_unet_params(mode="dense")``.
 Modules (tiny widths, f32): the quantized `Attention`, `FeedForward`,
 `BasicTransformerBlock` and `Transformer2DModel` against the Flax modules on
 two routes.  ``cpu``: the JAX package's CPU route (layernorm_ref and its
-W8A8 dense recipe), which is W8A8 in f32 as the port is, except that it
-divides by the activation scale where the kernels multiply by its inverse:
-2e-4 x max(1, scale), as the exact modules are held.  Its 1x1 QuantConv is a
-dequantized-weight conv instead (quant.py:126-144), so `Transformer2DModel`
-runs only on ``tpu``: the TPU route emulated (``jax.default_backend``
-returns "tpu" and the int8 kernels run in interpret mode), with the port's
-wrappers rounding to bf16 as the Pallas kernels do.  There each projection's
-output is rounded to bf16 on both sides, a one-ulp difference there can move
-an int8 level downstream, and the tolerance is 1e-2 x max(1, scale), the
-bound past which the int8 engine's gap would be a fault (measured 4.3e-3 x
-scale on the whole block).
+W8A8 dense recipe in f32), which divides by the activation scale where the
+kernels multiply by its inverse, with its int8 outputs rounded to bf16
+where the TPU kernels write them (tests/torch_int8_route.py:
+`round_cpu_route_writes`), since the port's plain versions write bf16 as
+the Pallas kernels do: 2e-4 x max(1, scale), as the exact modules are held
+(the attention sublayers read bit-equal, the FF one element apart).  Its
+1x1 QuantConv is a dequantized-weight conv instead (quant.py:126-144), so
+`Transformer2DModel` runs only on ``tpu``: the TPU route emulated
+(``jax.default_backend`` returns "tpu" and the int8 kernels run in
+interpret mode), the port's own code on the other side.  There each
+projection's output is rounded to bf16 on both sides, a one-ulp difference
+there can move an int8 level downstream, and the tolerance is 1e-2 x max(1,
+scale), the bound past which the int8 engine's gap would be a fault
+(measured 4.3e-3 x scale on the whole block).  The whole block on the
+``cpu`` route is held to that bound for the same reason: its FF output
+differs from the rounded CPU route's by one bf16 ulp in 2.4e-4 of its
+elements, which moves int8 levels in the next sublayer (measured 4.3e-3 x
+scale).
 """
 
 import functools
@@ -55,7 +62,7 @@ from cfgpp_tpu_torch.models.unet import (BasicTransformerBlock,
 from cfgpp_tpu_torch.weights.bridge import diffusers_state_dict
 from cfgpp_tpu_torch.weights.quantize import (quantize_unet_,
                                               quantized_structure_)
-from tests.torch_int8_route import emulate_tpu_route
+from tests.torch_int8_route import emulate_tpu_route, round_cpu_route_writes
 
 
 def T(a):
@@ -358,15 +365,17 @@ def test_unported_modes_raise():
 def route(request, monkeypatch):
     if request.param == "tpu":
         emulate_tpu_route(monkeypatch)
+    else:
+        round_cpu_route_writes(monkeypatch)
     return request.param
 
 
-def _assert_close(got, want, what, route):
+def _assert_close(got, want, what, route, whole_block=False):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     err = float(np.max(np.abs(got - want)))
     scale = float(np.max(np.abs(want)))
-    tol = 2e-4 if route == "cpu" else 1e-2
+    tol = 2e-4 if route == "cpu" and not whole_block else 1e-2
     assert err <= tol * max(1.0, scale), f"{what}: max err {err} (scale {scale})"
 
 
@@ -416,7 +425,8 @@ def test_quant_block_modules_match_jax(block_params, route, module):
         want = JaxBlock(2, 16, **kw).apply(pq, jx, jc)
         got = tb(xt, ct)
     assert got.dtype == torch.float32
-    _assert_close(got, want, f"{module} ({route} route)", route)
+    _assert_close(got, want, f"{module} ({route} route)", route,
+                  whole_block=module == "block")
 
 
 @pytest.mark.parametrize("route", ["tpu"], indirect=True)

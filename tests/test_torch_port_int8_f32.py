@@ -10,23 +10,20 @@ versions there); here:
   dtypes, and take ``out_dtype`` equal to x's dtype only;
 - the plain versions with f32 activations and f32 outputs against the
   Pallas kernels in interpret mode at SD-1.5 site widths (shorter
-  sequences).  The Pallas kernels write bf16 from the same f32 value the
-  plain version returns, so without a prologue every element of the plain
-  output lies within half a bf16 ulp of the Pallas one (plus 1e-6 x
-  max|ref| for an f32 rounding of either side's multiply-adds).  A
+  sequences).  Both write bf16 (the port's f32 output holds bf16 values)
+  from the same f32 value, so without a prologue the plain output equals
+  the Pallas one cast to f32, except where that value lies within 1e-6 x
+  max|ref| of a bf16 rounding tie (an f32 rounding of either side's
+  multiply-adds): there one bf16 ulp (`assert_pallas_bf16_write`).  A
   LayerNorm or GroupNorm prologue and the feed-forward's hidden requantize
   may move one int8 level, as in bf16: then at most 0.1% of the elements
-  may be further off, each within 2e-2 x max|ref|.  The int8-score
-  attention's p is not rounded in f32 on either side: within half a bf16
-  ulp plus 1e-5 (exp2 and the sums differ in their last bits);
+  may be beyond half a bf16 ulp, each within 2e-2 x max|ref|.  The
+  int8-score attention's p is not rounded in f32 on either side: equal
+  but within 1e-5 of a tie (exp2 and the sums differ in their last bits);
 - an f32 ``--quant all`` UNet call hands every int8 entry point f32
-  activations and gets f32 back.  The f32 ``--quant all`` engine against
-  the JAX engine per step is test_torch_port_int8_all_engine.py's (its
-  bundles are f32; the port's kernel outputs are rounded to bf16 there, as
-  the Pallas kernels write bf16).  Kept in f32, the port reads 0.9-1.7e-2
-  x max(1, scale) per step against that JAX route on tiny_sd, and so does
-  the unquantized f32 port (1.5-2.0e-2), so such a comparison could not
-  tell the int8 path from no quantization at all.
+  activations and gets f32 back, and every int8 layer's output holds bf16
+  values.  The f32 ``--quant all`` engine against the JAX engine per step
+  is test_torch_port_int8_all_engine.py's (its bundles are f32).
 """
 
 import importlib
@@ -45,6 +42,7 @@ from cfgpp_tpu_torch.kernels import int8_matmul as tk
 from cfgpp_tpu_torch.models import attention as ta
 from cfgpp_tpu_torch.models import quant as tq
 from cfgpp_tpu_torch.models import unet as tu
+from tests.torch_int8_route import assert_pallas_bf16_write
 
 jax_fa = importlib.import_module("cfgpp_tpu.kernels.flash_attention")
 jax_conv = importlib.import_module("cfgpp_tpu.kernels.int8_conv")
@@ -61,15 +59,19 @@ def _bf16_ulp(want):
                    - 7)
 
 
-def _assert_f32_within_pallas_bf16(got, want, flips: bool, extra=1e-6):
-    """``got`` (the port's f32) against ``want`` (Pallas, bf16)."""
+def _assert_f32_within_pallas_bf16(got, want, flips: bool, unrounded=None,
+                                   extra=1e-6):
+    """``got`` (the port's f32 output, bf16 values) against ``want``
+    (Pallas, bf16): without ``flips`` `assert_pallas_bf16_write` from the
+    port's ``unrounded`` f32 value, with a tie slack of ``extra`` x
+    max|want|; with ``flips`` (an int8 level may move) the flip rule."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape
     scale = float(np.abs(want).max())
-    off = np.abs(got - want) > 0.5 * _bf16_ulp(want) + extra * scale
     if not flips:
-        assert not off.any(), f"{off.sum()} elements beyond half a bf16 ulp"
+        assert_pallas_bf16_write(got, unrounded, want, extra * scale)
         return
+    off = np.abs(got - want) > 0.5 * _bf16_ulp(want) + extra * scale
     assert off.mean() <= 1e-3, f"{off.sum()} of {off.size} elements differ"
     assert np.abs(got - want).max() <= 2e-2 * scale
 
@@ -196,8 +198,13 @@ def test_int8_matmul_f32_reference_matches_pallas(site, k, n, mode):
                                 jnp.asarray(ws), interpret=True, **jkw)
     got = tk.int8_matmul_reference(T(x), T(wq.T), T(ws),
                                    out_dtype=torch.float32, **tkw)
+    pro = {k: v for k, v in tkw.items() if k.startswith("ln_")}
+    unrounded = tk.dequant_reference(
+        *tk.quantize_rows(tk.prologue_reference(T(x), **pro)), T(wq.T),
+        T(ws), tkw.get("bias"), tkw.get("residual"))
     assert got.dtype == torch.float32 and want.dtype == jnp.bfloat16
-    _assert_f32_within_pallas_bf16(got.numpy(), want, flips=mode == "ln")
+    _assert_f32_within_pallas_bf16(got.numpy(), want, flips=mode == "ln",
+                                   unrounded=unrounded)
 
 
 @pytest.mark.parametrize("c", [320, 640])
@@ -254,7 +261,12 @@ def test_int8_conv3x3_f32_reference_matches_pallas(c, o, prologue):
         T(x), T(np.asarray(wq).transpose(3, 0, 1, 2)), T(np.asarray(ws)),
         out_dtype=torch.float32, block_rows=br, **tkw)
     assert got.dtype == torch.float32 and got.shape == (b, h, w, o)
-    _assert_f32_within_pallas_bf16(got.numpy(), want, flips=prologue)
+    wt = T(np.asarray(wq).transpose(3, 0, 1, 2))
+    unrounded = tc.window_conv_reference(
+        *tc.conv_windows_reference(tc.conv_prologue_reference(T(x)), br),
+        wt, T(np.asarray(ws)), tkw["bias"], None, b)
+    _assert_f32_within_pallas_bf16(got.numpy(), want, flips=prologue,
+                                   unrounded=unrounded)
 
 
 @pytest.mark.parametrize("packed", [True, False])
@@ -268,6 +280,8 @@ def test_int8_score_f32_reference_matches_pallas_at_sd15_width(packed):
         want = jax_fa.flash_attention_qkv_packed_int8(
             jnp.asarray(qkv), heads, interpret=True)
         got = tfa.flash_attention_qkv_packed_int8_reference(T(qkv), heads)
+        unrounded = tfa.int8_score_attention_f32(
+            *T(qkv).split(heads * 80, dim=2), heads, 256)
     else:
         q = rng.standard_normal((2, 200, heads * 40)).astype(np.float32)
         k, v = (rng.standard_normal((2, 128, heads * 40)).astype(np.float32)
@@ -277,9 +291,10 @@ def test_int8_score_f32_reference_matches_pallas_at_sd15_width(packed):
             kv_len=100, interpret=True)
         got = tfa.flash_attention_hd_int8_reference(T(q), T(k), T(v), heads,
                                                     kv_len=100)
+        unrounded = tfa.int8_score_attention_f32(T(q), T(k), T(v), heads, 100)
     assert got.dtype == torch.float32 and want.dtype == jnp.bfloat16
     _assert_f32_within_pallas_bf16(got.numpy(), want, flips=False,
-                                   extra=1e-5)
+                                   unrounded=unrounded, extra=1e-5)
 
 
 # ------------------------------------------------------------------ model
@@ -325,3 +340,38 @@ def test_f32_quant_all_unet_feeds_the_kernels_f32(monkeypatch):
         for x_dt, res_dt, out_dt in combos:
             assert x_dt == out_dt == f32 and res_dt in (None, f32), name
     assert eps.dtype == f32 and bool(torch.isfinite(eps).all())
+
+
+def test_f32_quant_all_int8_outputs_hold_bf16_values(monkeypatch):
+    """Every int8 layer output of an f32 ``--quant all`` tiny_sd UNet call
+    (every 3x3 conv and self-attention routed to the kernels) is
+    bf16-representable, as JAX's bf16 kernel output cast to f32 is."""
+    tb = ModelBundle.random_init("tiny_sd", seed=0, dtype=torch.float32,
+                                 device="cpu").quantized("all")
+    monkeypatch.setattr(tq, "int8_conv3x3_supported", _conv_s1p1)
+    monkeypatch.setattr(tfa, "FLASH_MIN_Q_LEN", 0)
+    outs = {}
+
+    def spy(name, fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            outs.setdefault(name, []).append(out)
+            return out
+        return run
+
+    monkeypatch.setattr(tq, "int8_matmul", spy("mm", tk.int8_matmul))
+    monkeypatch.setattr(tq, "int8_conv3x3", spy("conv", tc.int8_conv3x3))
+    monkeypatch.setattr(tu, "int8_ff_geglu", spy("ff", tk.int8_ff_geglu))
+    monkeypatch.setattr(ta, "flash_attention_qkv_packed_int8",
+                        spy("score", tfa.flash_attention_qkv_packed_int8))
+    rng = np.random.default_rng(6)
+    z = T(rng.standard_normal((2, 8, 8, 4)).astype(np.float32))
+    ctx = T(rng.standard_normal((2, 77, tb.unet.config.cross_attention_dim)
+                                ).astype(np.float32))
+    with torch.inference_mode():
+        tb.unet(z, torch.tensor(301), ctx)
+    assert sorted(outs) == ["conv", "ff", "mm", "score"]
+    for name, ys in outs.items():
+        for y in ys:
+            assert y.dtype == torch.float32, name
+            assert torch.equal(y, y.bfloat16().float()), name

@@ -97,12 +97,15 @@ def test_cross_kv_sites_match_jax(bundles):
             _assert_close(gv, wv, site)
 
 
-def test_quantized_cross_kv_sites_match_jax(bundles):
+def test_quantized_cross_kv_sites_match_jax(bundles, monkeypatch):
     """precompute_cross_kv of the int8 UNet against the JAX package's CPU
-    route (quant_dense_apply, W8A8 in f32 like the port's plain version)."""
+    route (quant_dense_apply, W8A8 in f32 like the port's plain version),
+    its outputs rounded to bf16 as the TPU kernel and the port write them."""
     from cfgpp_tpu.weights.quantize import quantize_unet_params
+    from tests.torch_int8_route import round_cpu_route_writes
 
     jb, tb = bundles
+    round_cpu_route_writes(monkeypatch)
     ctx = np.random.default_rng(12).standard_normal((2, 77, 32), np.float32)
     want = jax_cross_kv(quantize_unet_params(jb.unet_params, mode="dense"),
                         jb.config.unet, jnp.asarray(ctx), quant="dense",

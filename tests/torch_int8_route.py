@@ -6,8 +6,13 @@ On the CPU, ``cfgpp_tpu``'s quantized modules take an XLA route whose
 they run W8A8 through the Pallas kernels, as the port does.
 `emulate_tpu_route` makes ``jax.default_backend`` answer "tpu" and runs the
 Pallas kernels in interpret mode (erf gelu named explicitly, never read
-from ``CFGPP_GELU``).  The int8 Pallas kernels write bf16, so the port's int8
-wrappers round their outputs to bf16 too.
+from ``CFGPP_GELU``).  The int8 Pallas kernels write bf16 whatever they
+read, and so do the port's int8 kernels and their plain versions: nothing
+on the port's side is patched.
+
+`round_cpu_route_writes` keeps the JAX package on its CPU route (W8A8 in
+f32) but rounds its int8 outputs to bf16 where the TPU route's kernels
+write them, so that the port can be held tightly against that route too.
 
 ``force=True`` also routes every stride-1 pad-1 3x3 conv to the fused
 conv kernel and every attention to the flash kernels (``FLASH_MIN_Q_LEN``
@@ -19,16 +24,16 @@ import functools
 import importlib
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 import torch
 
 import cfgpp_tpu.kernels.int8_matmul as jax_int8
 from cfgpp_tpu.models import attention as jax_attention
+from cfgpp_tpu.models import quant as jax_quant
+from cfgpp_tpu.models import unet as jax_unet
 from cfgpp_tpu_torch.kernels import flash_attention as tfa
-from cfgpp_tpu_torch.kernels import int8_conv as tc
-from cfgpp_tpu_torch.kernels import int8_matmul as tk
-from cfgpp_tpu_torch.models import attention as ta
 from cfgpp_tpu_torch.models import quant as tq
-from cfgpp_tpu_torch.models import unet as tu
 
 # cfgpp_tpu.kernels re-exports a function named flash_attention, which
 # shadows the submodule as an attribute of the package
@@ -37,10 +42,6 @@ jax_conv = importlib.import_module("cfgpp_tpu.kernels.int8_conv")
 FLASH_FUNCTIONS = ("flash_attention", "flash_attention_hd",
                    "flash_attention_hd_int8", "flash_attention_qkv_packed",
                    "flash_attention_qkv_packed_int8")
-
-
-def _bf16_out(fn):
-    return lambda *a, **k: fn(*a, **{**k, "out_dtype": torch.bfloat16}).float()
 
 
 def _conv_s1p1(x_shape, strides, padding, o=None) -> bool:
@@ -59,13 +60,59 @@ def emulate_tpu_route(monkeypatch, force: bool = False) -> None:
     for name in FLASH_FUNCTIONS:
         monkeypatch.setattr(jax_fa, name, functools.partial(
             getattr(jax_fa, name), interpret=True))
-    monkeypatch.setattr(tq, "int8_matmul", _bf16_out(tk.int8_matmul))
-    monkeypatch.setattr(tu, "int8_ff_geglu", _bf16_out(tk.int8_ff_geglu))
-    monkeypatch.setattr(tq, "int8_conv3x3", _bf16_out(tc.int8_conv3x3))
-    monkeypatch.setattr(ta, "flash_attention_qkv_packed_int8",
-                        _bf16_out(tfa.flash_attention_qkv_packed_int8))
     if force:
         monkeypatch.setattr(jax_conv, "int8_conv3x3_supported", _conv_s1p1)
         monkeypatch.setattr(tq, "int8_conv3x3_supported", _conv_s1p1)
         monkeypatch.setattr(jax_attention, "FLASH_MIN_Q_LEN", 0)
         monkeypatch.setattr(tfa, "FLASH_MIN_Q_LEN", 0)
+
+
+def _bf16(y):
+    return y.astype(jnp.bfloat16).astype(y.dtype)
+
+
+def round_cpu_route_writes(monkeypatch) -> None:
+    """The JAX package's CPU route with its int8 outputs rounded to bf16
+    where the TPU route's kernels write them: the bias-free projections
+    (to_qkv, to_q, to_k, to_v and the cross k/v, whose `int8_matmul` output
+    the TPU route uses as it is), and each quantized attention's and
+    feed-forward's output after its residual add (the last `int8_matmul` /
+    `int8_ff_geglu` of the sublayer, residual fused).  The FF's f32 hidden
+    state (a biased call) stays f32, as in the kernel.  proj_in/proj_out
+    are not covered: the CPU-route tests do not run them."""
+    real = jax_quant.quant_dense_apply
+
+    def dense(x, kernel, scale, bias, out_dtype):
+        y = real(x, kernel, scale, bias, out_dtype)
+        return y if bias is not None else _bf16(y)
+
+    attn, ff = jax_attention.Attention._quant_forward, \
+        jax_unet.FeedForward.__call__
+    monkeypatch.setattr(jax_quant, "quant_dense_apply", dense)
+    monkeypatch.setattr(jax_attention.Attention, "_quant_forward",
+                        lambda self, *a, **k: _bf16(attn(self, *a, **k)))
+    monkeypatch.setattr(
+        jax_unet.FeedForward, "__call__",
+        lambda self, *a, **k: _bf16(ff(self, *a, **k)) if self.quant
+        else ff(self, *a, **k))
+
+
+def bf16_values(a) -> np.ndarray:
+    """f32 values rounded to bf16 (half to even), as f32."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def assert_pallas_bf16_write(got, unrounded, want, slack: float) -> None:
+    """``got``: the port's output; ``unrounded``: its f32 value before the
+    bf16 write; ``want``: the Pallas kernel's bf16 output.  ``got`` is
+    ``unrounded`` rounded to bf16, and ``want`` is the bf16 rounding of a
+    value within ``slack`` of ``unrounded``: equal to ``got`` except near a
+    rounding tie, where an f32 rounding of either side's multiply-adds (XLA
+    may contract one into an fma) can pick the other neighbour."""
+    got, u = np.asarray(got, np.float32), np.asarray(unrounded, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == u.shape == want.shape
+    np.testing.assert_array_equal(got, bf16_values(u))
+    ok = (want >= bf16_values(u - slack)) & (want <= bf16_values(u + slack))
+    assert ok.all(), (f"{(~ok).sum()} of {ok.size} elements are no bf16"
+                      f" rounding of a value within {slack:.3g} of the port's")
