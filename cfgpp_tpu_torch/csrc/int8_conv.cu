@@ -17,62 +17,75 @@
 //
 // Layouts: x [B, H, W, C] and residual/out [B, H, W, O], all bf16 or all
 // f32 (the `_f32` entry point; the TPU kernel reads either), contiguous NHWC
-// (the port's NCHW channels_last memory); w int8
-// [O, 3, 3, C], so each tap's 16-channel slice of an output channel is one
-// 16-byte load.
+// (the port's NCHW channels_last memory); w int8 [O, 3, 3, C], so a row of
+// the weights is k-contiguous in tap-major order (k = (dh*3 + dw)*C + c).
 //
 // What bounds it on the H100: at the SD-1.5 sites (32x32 and 64x64 latents,
 // C = 640..1920, O = 640..1280, batch 2) each call is 27-60 GOP of int8
-// work, under 40 us at the 1979 TOP/s peak, and reads 4-10 MB of
-// activations; the re-quantization of each input element (once per column
-// shift and output-channel block) and the synchronous k loop bound this
-// first version, not the tensor cores.
+// work, 14-31 us at the 1979 TOP/s peak, against 4-10 MB of activations
+// (1-3 us at 3.35 TB/s): the tensor cores, if each input is quantized once.
 //
-// What the design does about that.  The windows overlap: a window's halo
-// rows are interior rows of its neighbours, quantized there with another
-// scale.  So no pre-pass can write one int8 copy per pixel, and the int8
-// activations never go to device memory: quantization happens on load.
+// What the design does about that.  The TPU kernel quantizes its window
+// once and reuses it over a sequential output-channel loop; a Hopper grid
+// runs its blocks in no order, so the counterpart is a pass before the
+// GEMM that quantizes each window exactly once.  The windows overlap (a
+// window's halo rows are interior rows of its neighbours, quantized there
+// with another scale), so the int8 copy holds br + 2 rows per window.
+// Three passes on the stream, each checked:
 //   1. `window_amax` (grid: window x slice) applies the prologue and reduces
 //      |x| over its part of a window; atomicMax on the float bits (all
 //      values are >= 0) combines the slices.
-//   2. `conv3x3_s8` computes one output tile of 128 pixels (R rows x TW
-//      columns of one window, TW = 64 or 32) x 128 output channels.  For
-//      each 64-channel chunk it loads the tile's (R+2) x (TW+2) input patch
-//      from bf16 or f32, applies the prologue, zeroes the padding, quantizes with
-//      the window's scale and stores three column-shifted int8 copies in
-//      shared memory (as the TPU kernel stages its three dw shifts), so that
-//      every tap (dh, dw) is a plain 128-row slice of copy dw starting dh*TW
-//      pixels in, 32-byte aligned as wmma requires.  Per tap it stages the
-//      weights' 128 x 64 slice and runs nvcuda::wmma m16n16k16 signed-char
-//      fragments with int accumulators (8 warps of 32 x 64, as gemm_s8 in
-//      int8_matmul.cu).  The epilogue dequantizes and writes x's type.
-// Overlapping the loads with the products (cp.async / TMA), keeping the
-// quantized patch across output-channel blocks, and wgmma are the known
-// next steps.
+//   2. `quantize_windows` applies the prologue once per element and window
+//      and writes the int8 windows xq [B*H/br, br+2, W, C] (rows beyond the
+//      sample's edge zero) and the scales.  It reads x about (br+2)/br times
+//      and writes half as many bytes; the buffer (2.9-6.6 MB at the SD-1.5
+//      sites) stays in L2 for the GEMM.
+//   3. `conv_s8`: an implicit GEMM, M = B*H*W output pixels, N = O,
+//      K = 9*C in tap-major order, on the core shared with int8_matmul.cu
+//      (int8_gemm.cuh: mma.sync m16n8k32, ldmatrix on swizzled rows, a
+//      cp.async ring, the register epilogue, a programmatic dependent
+//      launch that requests the first weight tiles before it waits for the
+//      windows), in 128 x 128 tiles with 128-byte k steps.  The A tile of
+//      k step (tap (dh, dw), channels c0..c0+127) is a gather: output
+//      pixel (b, h, w) reads row (win, h mod br + dh, w + dw - 1) of the
+//      window buffer, win = (b*H + h)/br, by 16-byte cp.async; columns
+//      outside [0, W) and channels past C take the zero-fill form.  So no
+//      shifted copies and no padding columns exist, and a tile may
+//      straddle windows: the epilogue scales each row by its own pixel's
+//      window scale.
+//   The 32^2 sites have 80-160 output tiles for 264 resident-block slots,
+//   so the k loop is split over up to 4 blocks of a thread block cluster,
+//   which add their int32 sums through distributed shared memory before
+//   the one dequant (`reduce_cluster_tile`): exact in any order, so the
+//   output is the unsplit one.
 //
 // Built by cfgpp_tpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound through ctypes (plain C entry point at the end of this file).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "int8_gemm.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BN = 128;                       // output channels per block
-constexpr int BK = 64;                        // input channels per chunk
-constexpr int kPlanes = BK / 16;              // 16-byte k planes of a chunk
-constexpr int kThreads = 256;                 // 8 warps: 4 (pixels) x 2 (channels)
-constexpr int kAmaxThreads = 256;
-constexpr int kPlaneB = BN * 16 + 32;         // a weight plane, 32-byte skew
-constexpr int kScratchBytes = kThreads / 32 * 256 * 4;
+using namespace int8_gemm;
+namespace cg = cooperative_groups;
+
+constexpr int kPassThreads = 256;   // window_amax and quantize_windows
+constexpr int kMaxSplits = 4;       // blocks of one output tile over k
+
+// The GEMM's tile: 128 x 128 outputs, 8 warps of 64 x 32, 128-byte k tiles
+// (half the barriers and waits per product of the 64-byte ones) in three
+// stages (96 KB, so that two blocks fit an SM).
+using ConvTile = Tile<128, 128, 64, 32, 128, 3>;
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -97,13 +110,6 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void store_f(float* p, float v) {
-  *p = __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // silu(x*g + b) as the plain version computes it: x*g, + b, then
 // v * sigmoid(v) with sigmoid = 1 / (1 + exp(-v)) (torch's formula).
 template <bool GN>
@@ -116,14 +122,14 @@ __device__ __forceinline__ float prologue(float v, const float* g, const float* 
   return v;
 }
 
-__device__ __forceinline__ float window_scale(const unsigned* amax, int win) {
+__device__ __forceinline__ float window_scale(const unsigned* amax, int64_t win) {
   return __fmul_rn(fmaxf(__uint_as_float(amax[win]), 1e-6f), 1.f / 127.f);
 }
 
 // |prologue(x)| max over window blockIdx.x's valid rows (h0-1 .. h0+br,
 // inside the sample), split over gridDim.y blocks.
 template <bool GN, typename T>
-__global__ void __launch_bounds__(kAmaxThreads)
+__global__ void __launch_bounds__(kPassThreads)
 window_amax(const T* __restrict__ x, const float* __restrict__ gs,
             const float* __restrict__ gb, unsigned* __restrict__ amax, int H,
             int W, int C, int br) {
@@ -132,178 +138,225 @@ window_amax(const T* __restrict__ x, const float* __restrict__ gs,
   const int b = win / hb;
   const int hw0 = (win % hb) * br;
   const int r_lo = max(hw0 - 1, 0), r_hi = min(hw0 + br + 1, H);
-  const int64_t groups = int64_t(r_hi - r_lo) * W * (C / 8);
-  const int64_t g0 = groups * blockIdx.y / gridDim.y;
-  const int64_t g1 = groups * (blockIdx.y + 1) / gridDim.y;
+  const int c8 = C / 8;
+  const int groups = (r_hi - r_lo) * W * c8;   // < 2^31: checked at launch
+  const int g0 = int(int64_t(groups) * blockIdx.y / gridDim.y);
+  const int g1 = int(int64_t(groups) * (blockIdx.y + 1) / gridDim.y);
   const T* base = x + (int64_t(b) * H + r_lo) * W * C;
   const float* g = GN ? gs + int64_t(b) * C : nullptr;
   const float* bb = GN ? gb + int64_t(b) * C : nullptr;
   float m = 0.f;
-  for (int64_t i = g0 + threadIdx.x; i < g1; i += kAmaxThreads) {
+  for (int i = g0 + threadIdx.x; i < g1; i += kPassThreads) {
     float f[8];
-    load8(base + i * 8, f);
-    const int c = int((i * 8) % C);
+    load8(base + int64_t(i) * 8, f);
+    const int c = i % c8 * 8;
 #pragma unroll
     for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(prologue<GN>(f[j], g, bb, c + j)));
   }
-  __shared__ float red[kAmaxThreads / 32];
+  __shared__ float red[kPassThreads / 32];
   m = warp_max(m);
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
   __syncthreads();
   if (threadIdx.x < 32) {
-    m = threadIdx.x < kAmaxThreads / 32 ? red[threadIdx.x] : 0.f;
+    m = threadIdx.x < kPassThreads / 32 ? red[threadIdx.x] : 0.f;
     m = warp_max(m);
     if (threadIdx.x == 0) atomicMax(amax + win, __float_as_uint(m));
   }
 }
 
-// Shared memory of one block: three column-shifted int8 copies of the input
-// patch (k planes of (rmax+2)*tw pixels x 16 bytes, 32-byte skew), one weight
-// tap (k planes of BN rows x 16 bytes), the epilogue's per-warp scratch.
-struct ConvPlan {
-  int tw, rmax, plane_a, copy_a;
-  size_t bytes;
-  __host__ __device__ explicit ConvPlan(int tw_) : tw(tw_), rmax(128 / tw_) {
-    plane_a = (rmax + 2) * tw * 16 + 32;
-    copy_a = kPlanes * plane_a;
-    bytes = size_t(3) * copy_a + size_t(kPlanes) * kPlaneB + kScratchBytes;
-  }
-};
-
-// One block: output pixels rows h0 .. h0+rows-1, columns col0 .. col0+tw-1
-// of sample b (all inside one scale window), output channels o0 .. o0+BN-1.
+// xq [nb, br+2, W, C] int8: row r of window win is input row
+// (win % (H/br))*br - 1 + r of sample win / (H/br), prologued and quantized
+// with the window's scale, or zeros beyond the sample's edge; sx [nb] the
+// scales.  One thread per 8 channels (a 16-byte bf16 or 32-byte f32 load,
+// an 8-byte int8 store), grid-stride.
 template <bool GN, typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_s8(const T* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ ws, const float* __restrict__ bias,
-           const float* __restrict__ gs, const float* __restrict__ gb,
-           const T* __restrict__ res, T* __restrict__ out,
-           const unsigned* __restrict__ amax, float* __restrict__ sx_out,
-           int8_t* __restrict__ xq_out, int H, int W, int C, int O, int br,
-           int tw, int rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const ConvPlan P(tw);
-  int8_t* as = reinterpret_cast<int8_t*>(smem);
-  int8_t* bs = as + 3 * P.copy_a;
-  int* scratch = reinterpret_cast<int*>(bs + kPlanes * kPlaneB);
-
-  const int tiles_w = W / tw;
-  const int tiles_per_win = (br / rows) * tiles_w;
-  const int win = blockIdx.y / tiles_per_win;
-  const int t = blockIdx.y % tiles_per_win;
-  const int tr = t / tiles_w, tc = t % tiles_w;
+__global__ void __launch_bounds__(kPassThreads)
+quantize_windows(const T* __restrict__ x, const float* __restrict__ gs,
+                 const float* __restrict__ gb,
+                 const unsigned* __restrict__ amax, float* __restrict__ sx,
+                 int8_t* __restrict__ xq, int H, int W, int C, int br,
+                 int groups) {
+  // 32-bit index math: groups < 2^31, checked at launch
+  const int c8 = C / 8;
+  const int per_row = W * c8;
+  const int per_win = (br + 2) * per_row;
   const int hb = H / br;
-  const int b = win / hb;
-  const int h0 = (win % hb) * br + tr * rows;
-  const int col0 = tc * tw;
-  const int o0 = blockIdx.x * BN;
-  const float s = window_scale(amax, win);
-  const float inv = __fdiv_rn(1.f, s);
-  if (sx_out != nullptr && blockIdx.x == 0 && t == 0 && threadIdx.x == 0)
-    sx_out[win] = s;
-  const float* g = GN ? gs + int64_t(b) * C : nullptr;
-  const float* bb = GN ? gb + int64_t(b) * C : nullptr;
-  // the stages entry point also gets the windows, written once (by the
-  // blocks of the first channel block) from the unshifted copy
-  const bool write_xq = xq_out != nullptr && blockIdx.x == 0;
+  for (int i = blockIdx.x * kPassThreads + threadIdx.x; i < groups;
+       i += gridDim.x * kPassThreads) {
+    const int win = i / per_win;
+    const int rest = i - win * per_win;
+    const int r = rest / per_row;
+    const int px = rest - r * per_row;           // col * c8 + chunk
+    const int b = win / hb;
+    const int h = (win - b * hb) * br - 1 + r;
+    const float s = window_scale(amax, win);
+    if (rest == 0) sx[win] = s;
+    unsigned lo = 0u, hi = 0u;
+    if (h >= 0 && h < H) {
+      const float inv = __fdiv_rn(1.f, s);
+      const int c = px % c8 * 8;
+      const float* g = GN ? gs + int64_t(b) * C : nullptr;
+      const float* bb = GN ? gb + int64_t(b) * C : nullptr;
+      float f[8];
+      load8(x + ((int64_t(b) * H + h) * per_row + px) * 8, f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = prologue<GN>(f[j], g, bb, c + j);
+        const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+        const unsigned byte = static_cast<unsigned>(static_cast<int>(q)) & 0xffu;
+        if (j < 4) lo |= byte << (8 * j);
+        else hi |= byte << (8 * (j - 4));
+      }
+    }
+    *reinterpret_cast<uint2*>(xq + int64_t(i) * 8) = make_uint2(lo, hi);
+  }
+}
 
+// The blocks of a cluster along z computed the same output tile over
+// different k ranges.  Each writes its int32 tile to its shared memory (the
+// drained ring; columns XOR-swizzled by row against bank conflicts), then
+// reduces rows rank, rank + s, ... over the cluster's tiles (distributed
+// shared memory) and stores them: the int32 sums are exact in any order,
+// and the dequant comes after them, so the output equals the unsplit one.
+template <class Cfg, typename T, class RowScale>
+__device__ __forceinline__ void reduce_cluster_tile(
+    const Acc<Cfg>& acc, int8_t* smem, int64_t m0, int n0, int64_t m, int O,
+    const RowScale& row_scale, const float* __restrict__ ws,
+    const float* __restrict__ bias, const T* __restrict__ res,
+    T* __restrict__ out) {
+  static_assert(Cfg::BM * Cfg::BN * 4 <= Cfg::kSmem, "the int32 tile fits the ring");
+  cg::cluster_group cluster = cg::this_cluster();
+  int* tile = reinterpret_cast<int*>(smem);
+  auto at = [](int r, int c) { return r * Cfg::BN + (c ^ ((r & 7) << 3)); };
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][4];
+  const int wm = warp / Cfg::kWarpsN, wn = warp % Cfg::kWarpsN;
+  const int g = lane / 4, t = lane % 4;
+  cp_async_wait<0>();
+  __syncthreads();                 // every warp is done with the ring
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < Cfg::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int prow = P.rmax + 2;                // patch rows held (rows+2 used)
-  const int items = 3 * prow * tw * (BK / 8);
-  for (int c0 = 0; c0 < C; c0 += BK) {
-    __syncthreads();   // the previous chunk's products are done with as / bs
-    for (int i = threadIdx.x; i < items; i += kThreads) {
-      const int grp = i % (BK / 8);
-      int rest = i / (BK / 8);
-      const int col = rest % tw;
-      rest /= tw;
-      const int r = rest % prow;
-      const int dw = rest / prow;
-      const int hi = h0 - 1 + r, wi = col0 + col + dw - 1, c = c0 + grp * 8;
-      unsigned lo = 0u, hi8 = 0u;
-      if (r < rows + 2 && hi >= 0 && hi < H && wi >= 0 && wi < W && c < C) {
-        float f[8];
-        load8(x + ((int64_t(b) * H + hi) * W + wi) * C + c, f);
+    for (int half = 0; half < 2; ++half)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = prologue<GN>(f[j], g, bb, c + j);
-          const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
-          const unsigned byte = static_cast<unsigned>(static_cast<int>(q)) & 0xffu;
-          if (j < 4) lo |= byte << (8 * j);
-          else hi8 |= byte << (8 * (j - 4));
-        }
+      for (int j = 0; j < Cfg::NT; ++j) {
+        const int r = wm * Cfg::WM + i * 16 + g + 8 * half;
+        *reinterpret_cast<int2*>(tile + at(r, wn * Cfg::WN + j * 8 + 2 * t)) =
+            make_int2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
       }
-      const uint2 q8 = make_uint2(lo, hi8);
-      *reinterpret_cast<uint2*>(as + dw * P.copy_a + (grp / 2) * P.plane_a +
-                                (r * tw + col) * 16 + (grp % 2) * 8) = q8;
-      if (write_xq && dw == 1 && r < rows + 2 && c < C)
-        *reinterpret_cast<uint2*>(
-            xq_out + ((int64_t(win) * (br + 2) + tr * rows + r) * W + col0 + col) * C +
-            c) = q8;
+  cluster.sync();
+  const int s = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  constexpr int kPairs = Cfg::BN / 2;
+  const int rows = (Cfg::BM - rank + s - 1) / s;
+  for (int idx = threadIdx.x; idx < rows * kPairs; idx += Cfg::kThreads) {
+    const int r = rank + (idx / kPairs) * s, c = (idx % kPairs) * 2;
+    int2 sum = make_int2(0, 0);
+    for (int q = 0; q < s; ++q) {
+      const int2 v =
+          *reinterpret_cast<const int2*>(cluster.map_shared_rank(tile, q) + at(r, c));
+      sum.x += v.x;
+      sum.y += v.y;
     }
-    for (int tap = 0; tap < 9; ++tap) {
-      if (tap > 0) __syncthreads();   // the previous tap's products are done with bs
-      for (int i = threadIdx.x; i < BN * kPlanes; i += kThreads) {
-        const int o = i / kPlanes, p = i % kPlanes;
-        const int c = c0 + p * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (o0 + o < O && c < C)
-          v = *reinterpret_cast<const uint4*>(w + (int64_t(o0 + o) * 9 + tap) * C + c);
-        *reinterpret_cast<uint4*>(bs + p * kPlaneB + o * 16) = v;
-      }
-      __syncthreads();
-      // tap (dh, dw): output pixel m reads patch pixel m + dh*tw of copy dw
-      const int8_t* a_tap = as + (tap % 3) * P.copy_a + (tap / 3) * tw * 16;
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              fa[i], reinterpret_cast<const signed char*>(
-                         a_tap + p * P.plane_a + (wm * 32 + i * 16) * 16), 16);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(
-              fb[j], reinterpret_cast<const signed char*>(
-                         bs + p * kPlaneB + (wn * 64 + j * 16) * 16), 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
+    const int64_t row = m0 + r;
+    if (row < m && n0 + c < O)
+      store_pair(sum.x, sum.y, row_scale(row), ws, bias, res, out, row, n0 + c, O);
   }
+  cluster.sync();                  // no block leaves while its tile is read
+}
 
-  int* sc = scratch + warp * 256;
+// Output tile: pixels [m0, m0+BM) of the m = B*H*W output pixels x output
+// channels [n0, n0+BN), from the window buffer xq and w [O, 9*C], over k
+// steps [z * ksteps, (z + 1) * ksteps) of the 9 * ceil(C / BK) for
+// blockIdx.z = z; with gridDim.z > 1 the z blocks of a tile form a cluster
+// that reduces their sums (`reduce_cluster_tile`).
+template <class Cfg, typename T>
+__global__ void __launch_bounds__(Cfg::kThreads)
+conv_s8(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
+        const float* __restrict__ sx, const float* __restrict__ ws,
+        const float* __restrict__ bias, const T* __restrict__ res,
+        T* __restrict__ out, int64_t m, int W, int C, int O, int br,
+        int ksteps) {
+  extern __shared__ __align__(128) int8_t smem[];
+  constexpr int kCopiesA = Cfg::BM * Cfg::kChunks / Cfg::kThreads;
+  constexpr int kCopiesB = Cfg::BN * Cfg::kChunks / Cfg::kThreads;
+  constexpr int BK = Cfg::BK, kRowStep = Cfg::kThreads / Cfg::kChunks;
+  const int64_t m0 = blockIdx.y * int64_t(Cfg::BM);
+  const int n0 = blockIdx.x * Cfg::BN;
+  const int chunks = (C + BK - 1) / BK;        // k steps per tap
+
+  // This thread's copies: 16-byte chunk c of tile rows r, r + kThreads/4,
+  // ...  For each A row, the window-buffer pixel its output pixel reads at
+  // tap (0, 1) (window row h mod br, its own column) and which column
+  // shifts dw = 0, 1, 2 stay inside [0, W) (none past the last pixel); for
+  // each B row, its weight row, if inside O.  A k step then adds one offset.
+  const int c = threadIdx.x % Cfg::kChunks, r0 = threadIdx.x / Cfg::kChunks;
+  const int8_t* a_src[kCopiesA];
+  unsigned a_dw[kCopiesA];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = wm * 32 + i * 16 + e / 16;
-        const int n = o0 + wn * 64 + j * 16 + e % 16;
-        const int row = m / tw, col = m % tw;
-        if (row >= rows || n >= O) continue;
-        const int64_t px = (int64_t(b) * H + h0 + row) * W + col0 + col;
-        float y = __fmul_rn(__fmul_rn(__int2float_rn(sc[e]), s), ws[n]);
-        if (bias) y = __fadd_rn(y, bias[n]);
-        if (res) y = __fadd_rn(y, to_f(res[px * O + n]));
-        store_f(out + px * O + n, y);
-      }
-      __syncwarp();
-    }
+  for (int it = 0; it < kCopiesA; ++it) {
+    const int64_t p = m0 + r0 + it * kRowStep;
+    const int64_t row = p / W;               // b*H + h
+    const int col = int(p % W);
+    a_src[it] = xq + (((row / br) * (br + 2) + row % br) * W + col) * C + c * 16;
+    a_dw[it] = p < m ? (col > 0) | 2u | (col + 1 < W ? 4u : 0u) : 0u;
   }
+  const int8_t* b_src[kCopiesB];
+  bool b_ok[kCopiesB];
+#pragma unroll
+  for (int it = 0; it < kCopiesB; ++it) {
+    const int o = n0 + r0 + it * kRowStep;
+    b_ok[it] = o < O;
+    b_src[it] = w + int64_t(o) * 9 * C + c * 16;
+  }
+  auto load_a = [&](int8_t* as, int kt) {
+    const int tap = kt / chunks, dh = tap / 3, dw = tap - dh * 3;
+    const int c0 = (kt - tap * chunks) * BK;
+    const int off = (dh * W + dw - 1) * C + c0;
+    const bool in_c = c0 + c * 16 < C;
+#pragma unroll
+    for (int it = 0; it < kCopiesA; ++it) {
+      const bool ok = in_c && (a_dw[it] >> dw & 1u);
+      cp_async16(as + Cfg::swz(r0 + it * kRowStep, c),
+                 ok ? a_src[it] + off : xq, ok ? 16 : 0);
+    }
+  };
+  auto load_b = [&](int8_t* bs, int kt) {
+    const int tap = kt / chunks;
+    const int c0 = (kt - tap * chunks) * BK;
+    const int off = tap * C + c0;
+    const bool in_c = c0 + c * 16 < C;
+#pragma unroll
+    for (int it = 0; it < kCopiesB; ++it) {
+      const bool ok = in_c && b_ok[it];
+      cp_async16(bs + Cfg::swz(r0 + it * kRowStep, c),
+                 ok ? b_src[it] + off : w, ok ? 16 : 0);
+    }
+  };
+  const int kt0 = blockIdx.z * ksteps;
+  int acc[Cfg::MT][Cfg::NT][4];
+  mma_ring<Cfg>(smem, min(ksteps, 9 * chunks - kt0),
+                [&](int8_t* as, int kt) { load_a(as, kt0 + kt); },
+                [&](int8_t* bs, int kt) { load_b(bs, kt0 + kt); }, acc);
+  auto row_scale = [&](int64_t row) { return sx[row / W / br]; };
+  if (gridDim.z > 1)
+    reduce_cluster_tile<Cfg>(acc, smem, m0, n0, m, O, row_scale, ws, bias, res,
+                             out);
+  else
+    store_tile<Cfg>(acc, m0, n0, m, O, row_scale, ws, bias, res, out);
+}
+
+// The split over k: the fewest blocks per output tile (at most
+// kMaxSplits) that give every resident-block slot of the card a block.
+// Read off an H100 80GB HBM3 with cfgpp_tpu_torch/tools/int8_ab.py
+// (--library int8_conv) against 64 x 64 and 64-byte-k tiles and every
+// split up to 4: at the SD-1.5 sites this picks 2, 4, 4 and 1 (160, 80, 80
+// and 320 tiles on 264 slots), each within 2% of the best measured.
+template <typename T>
+int conv_splits(int64_t m, int O) {
+  const int64_t slots =
+      int64_t(sm_count()) * blocks_per_sm<ConvTile, conv_s8<ConvTile, T>>();
+  const int64_t tiles = (m + ConvTile::BM - 1) / ConvTile::BM *
+                        ((O + ConvTile::BN - 1) / ConvTile::BN);
+  return int(std::min<int64_t>(kMaxSplits, (slots + tiles - 1) / tiles));
 }
 
 template <bool GN, typename T>
@@ -315,27 +368,34 @@ cudaError_t launch(const T* x, const int8_t* w, const float* ws,
   const int nb = B * H / br;
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned) * nb, s);
   if (err != cudaSuccess) return err;
-  // enough blocks to fill the card twice, each of at least 1024 groups of 8
+  // enough blocks to fill the card 8 times, each of at least 256 groups of
+  // 8 (a thread's loads in flight hide the latency; the loop has few turns)
   const int64_t groups = int64_t(std::min(br + 2, H)) * W * (C / 8);
+  const int64_t want = int64_t(sm_count()) * 8;
   const int64_t slices =
-      std::max<int64_t>(1, std::min<int64_t>((264 + nb - 1) / nb, groups / 1024));
-  window_amax<GN, T><<<dim3(nb, unsigned(slices)), kAmaxThreads, 0, s>>>(x, gs, gb, amax,
-                                                                     H, W, C, br);
+      std::max<int64_t>(1, std::min<int64_t>((want + nb - 1) / nb, groups / 256));
+  window_amax<GN, T><<<dim3(nb, unsigned(slices)), kPassThreads, 0, s>>>(
+      x, gs, gb, amax, H, W, C, br);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int tw = W % 64 == 0 ? 64 : 32;
-  const ConvPlan P(tw);
-  const int rows = std::min(P.rmax, br);
-  if (br % rows) return cudaErrorInvalidValue;
-  auto kern = conv3x3_s8<GN, T>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(P.bytes));
+  const int64_t qgroups = int64_t(nb) * (br + 2) * W * (C / 8);
+  if (qgroups >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  const int64_t qblocks = std::min<int64_t>(
+      (qgroups + kPassThreads - 1) / kPassThreads, int64_t(sm_count()) * 16);
+  quantize_windows<GN, T><<<unsigned(qblocks), kPassThreads, 0, s>>>(
+      x, gs, gb, amax, sx, xq, H, W, C, br, int(qgroups));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((O + BN - 1) / BN, nb * (br / rows) * (W / tw));
-  kern<<<grid, kThreads, P.bytes, s>>>(x, w, ws, bias, gs, gb, res, out, amax, sx,
-                                        xq, H, W, C, O, br, tw, rows);
-  return cudaGetLastError();
+
+  const int64_t m = int64_t(B) * H * W;
+  const int splits = conv_splits<T>(m, O);
+  const int ksteps = 9 * ((C + ConvTile::BK - 1) / ConvTile::BK);
+  const dim3 grid((O + ConvTile::BN - 1) / ConvTile::BN,
+                  unsigned((m + ConvTile::BM - 1) / ConvTile::BM), splits);
+  return launch_pdl<ConvTile, conv_s8<ConvTile, T>>(
+      grid, splits, s, xq, w, sx, ws, bias, res, out, m, W, C, O, br,
+      (ksteps + splits - 1) / splits);
 }
 
 template <typename T>
@@ -343,7 +403,8 @@ cudaError_t conv3x3(const void* x, const void* w, const void* ws,
                     const void* bias, const void* gs, const void* gb,
                     const void* res, void* out, void* amax, void* sx, void* xq,
                     int B, int H, int W, int C, int O, int br, cudaStream_t s) {
-  if (C % 16 || W % 32 || br < 1 || H % br) return cudaErrorInvalidValue;
+  if (C % 16 || O % 2 || br < 1 || H % br || xq == nullptr)
+    return cudaErrorInvalidValue;
   const auto* xt = static_cast<const T*>(x);
   const auto* wq = static_cast<const int8_t*>(w);
   const auto* wsf = static_cast<const float*>(ws);
@@ -362,13 +423,15 @@ cudaError_t conv3x3(const void* x, const void* w, const void* ws,
 
 }  // namespace
 
-// x bf16 [B, H, W, C] contiguous; w int8 [O, 3, 3, C]; ws f32 [O]; bias f32
-// [O] or null; gs/gb f32 [B, C] (the prologue) or null; res bf16 [B, H, W, O]
-// or null; out bf16 [B, H, W, O].  Scratch: amax (4 bytes x B*H/br).  sx f32
+// x bf16 [B, H, W, C] contiguous, 16-byte aligned; w int8 [O, 3, 3, C],
+// 16-byte aligned; ws f32 [O] and bias f32 [O] or null, 8-byte aligned;
+// gs/gb f32 [B, C] (the prologue) or null; res bf16 [B, H, W, O] or null;
+// out bf16 [B, H, W, O].  Scratch: amax (4 bytes x B*H/br).  sx f32
 // [B*H/br] receives the window scales; xq int8 [B*H/br, br+2, W, C] the
-// quantized windows, or null.  C a multiple of 16, W of 32, br divides H.
-// Returns a cudaError_t (0 on success).  The `_f32` entry point takes x, res
-// and out in f32, with the same arguments otherwise.
+// quantized windows the GEMM reads.  C a multiple of 16, O of 2, br divides
+// H.  Returns a cudaError_t (0 on success).  The `_f32` entry point takes
+// x, res and out in f32 (out holding bf16-rounded values), with the same
+// arguments otherwise.
 extern "C" int cfgpp_int8_conv3x3(const void* x, const void* w, const void* ws,
                                   const void* bias, const void* gs, const void* gb,
                                   const void* res, void* out, void* amax, void* sx,

@@ -30,27 +30,13 @@
 // repeats the LayerNorm; the extra int8 write and read cost half of one
 // bf16 read of x.
 //
-// The GEMM (`gemm_s8`) is built for the small k loops of the slice (K = 320
-// is five 64-byte steps):
-// - mma.sync m16n8k32 s8 x s8 -> s32 in inline PTX.  Both operands are
-//   k-contiguous (int8 x [m, k]; w [n, k], "col" for B), so plain ldmatrix
-//   (.x4, no .trans) loads both fragments.
-// - Shared memory rows of 64 bytes whose 16-byte chunks are XOR-swizzled by
-//   row, so cp.async stores and ldmatrix reads are free of bank conflicts.
-// - A four-stage ring of cp.async.cg 16-byte copies and one __syncthreads
-//   per k step: the copies of steps k+1..k+3 are in flight while step k
-//   computes.  Rows at or past m or n and chunks at or past k are written
-//   as zeros without a read (the zero-fill form), so they add nothing.
-// - The epilogue works from registers: each thread holds pairs of adjacent
-//   columns of the m16n8 C fragment, reads the weight scales as float2 and
-//   the residual as bf16x2, and stores bf16x2; every f32 step uses the _rn
-//   intrinsics in the plain version's order, so the output is bit-equal.
-// - Tiles: 128 x 128 with 8 warps of 64 x 32, or 64 x 64 with 4 warps of
-//   32 x 32, whichever leaves the busiest SM the least work (the SM count is
-//   read once per process).  No split over k.
-// - A programmatic dependent launch: the GEMM grid may be scheduled as the
-//   quantize pass before it drains, requests its first weight tiles, and
-//   waits (griddepcontrol.wait) before it reads the quantized rows.
+// The GEMM (`gemm_s8`) runs on the core it shares with int8_conv.cu
+// (int8_gemm.cuh: mma.sync m16n8k32 s8 with ldmatrix on XOR-swizzled rows,
+// a four-stage cp.async ring with zero-fill past m, n and k, a register
+// epilogue in the plain version's _rn order, a 128 x 128 or 64 x 64 tile by
+// the busiest SM's work, a programmatic dependent launch behind the
+// quantize pass), here over the small k loops of the slice (K = 320 is
+// five 64-byte steps).  No split over k.
 // - GEGLU: the B tile holds 8 value rows and then the same 8 columns' gate
 //   rows in each 16-row group, so a thread's n8 tiles 2j and 2j+1 hold the
 //   value and the gate of the same two hidden columns; v*gelu(g) forms in
@@ -82,9 +68,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "int8_gemm.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using namespace int8_gemm;
 
 constexpr int kQuantWarps = 8;   // rows per block of the quantize pass
 
@@ -104,21 +94,6 @@ __device__ __forceinline__ float load_f(const bf16* p, int64_t i) {
   return __bfloat162float(p[i]);
 }
 __device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
-
-// Two adjacent activations as f32, and two f32 outputs stored as T: each
-// rounded once to bf16, kept as bf16 or widened back to f32.
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = __bfloat1622float2(__floats2bfloat162_rn(a, b));
-}
 
 // One warp per row: optional prologue, absmax, quantize.  The prologue is
 // recomputed in each pass instead of stored; it is the same arithmetic, so
@@ -174,87 +149,13 @@ quantize_rows(const T* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------- int8 GEMM
-constexpr int BK = 64;        // k bytes per stage: four 16-byte chunks a row
-constexpr int kStages = 4;    // cp.async ring depth
-
-// Output tile BM x BN of warps WM x WN each.
-template <int BM_, int BN_, int WM_, int WN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
-  static constexpr int kWarpsN = BN / WN;
-  static constexpr int kThreads = (BM / WM) * kWarpsN * 32;
-  static constexpr int MT = WM / 16;            // m16 tiles per warp
-  static constexpr int NT = WN / 8;             // n8 tiles per warp
-  static constexpr int kStageBytes = (BM + BN) * BK;
-  static constexpr int kSmem = kStages * kStageBytes;
-  static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile");
-  static_assert((BM * 4) % kThreads == 0 && (BN * 4) % kThreads == 0,
-                "every thread issues the same number of copies");
-};
-using LargeTile = Tile<128, 128, 64, 32>;   // 8 warps, 2 x 4
-using SmallTile = Tile<64, 64, 32, 32>;     // 4 warps, 2 x 2
-
-// Byte offset of 16-byte chunk `c` (0..3) of tile row `r`: rows are BK = 64
-// bytes, and the chunk index is XORed with bits 1-2 of the row, so the 8
-// rows of one ldmatrix phase and the 8 chunks of one cp.async phase each hit
-// 8 distinct 4-bank groups.
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * BK + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b on the tensor cores: a 16x32 s8 (row), b 32x8 s8 (col), c s32.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ((acc * s_row) * sw) + bias, each step rounded on its own (as the plain
-// version).
-__device__ __forceinline__ float dequant(int acc, float s_row, float sw,
-                                         const float* bias, int col) {
-  const float y = __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), sw);
-  return bias ? __fadd_rn(y, bias[col]) : y;
-}
-
 // out rows [m0, m0+BM) x cols [n0, n0+BN) of a . w^T, a [m, k], w [rows, k]
-// int8, both k-contiguous.  GEGLU: w has 2n rows (value rows, then gate
-// rows) and a block covers BN/2 hidden columns: each 16-row group of the B
-// tile holds 8 value rows n0+8j.. and then the same 8 columns' gate rows
-// n+n0+8j.., so a warp's n8 tiles 2j and 2j+1 are the value and the gate of
-// the same 8 hidden columns and v*gelu(g) forms in registers.
+// int8, both k-contiguous, on the shared core (int8_gemm.cuh).  GEGLU: w
+// has 2n rows (value rows, then gate rows) and a block covers BN/2 hidden
+// columns: each 16-row group of the B tile holds 8 value rows n0+8j.. and
+// then the same 8 columns' gate rows n+n0+8j.., so a warp's n8 tiles 2j and
+// 2j+1 are the value and the gate of the same 8 hidden columns and
+// v*gelu(g) forms in registers.
 template <class C, bool GEGLU, typename T>
 __global__ void __launch_bounds__(C::kThreads)
 gemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
@@ -262,13 +163,10 @@ gemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
         const float* __restrict__ bias, const T* __restrict__ res,
         T* __restrict__ out, float* __restrict__ hout, int m, int n, int k) {
   extern __shared__ __align__(128) int8_t smem[];
-  constexpr int BM = C::BM, BN = C::BN, MT = C::MT, NT = C::NT;
+  constexpr int BM = C::BM, BN = C::BN, NT = C::NT;
   constexpr int kCols = GEGLU ? BN / 2 : BN;   // output columns per block
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * kCols;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
-  const int ktiles = (k + BK - 1) / BK;
 
   // tile row -> row of w (or -1 past the edge)
   auto w_row = [&](int r) -> int {
@@ -276,103 +174,50 @@ gemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
     const int c = n0 + (r >> 4) * 8 + (r & 7);
     return c < n ? ((r & 8) ? n + c : c) : -1;
   };
-  // Copies of k tile kt into ring stage `stage`; rows past m or n and chunks
-  // past k are zero-filled without a read.
-  auto load_a = [&](int stage, int kt) {
-    int8_t* as = smem + stage * C::kStageBytes;
-    const int k0 = kt * BK;
+  // Copies of k tile kt; rows past m or n and chunks past k are zero-filled
+  // without a read.
+  auto load_a = [&](int8_t* as, int kt) {
+    const int k0 = kt * C::BK;
 #pragma unroll
-    for (int it = 0; it < BM * 4 / C::kThreads; ++it) {
+    for (int it = 0; it < BM * C::kChunks / C::kThreads; ++it) {
       const int i = threadIdx.x + it * C::kThreads;
-      const int r = i >> 2, c = i & 3, kc = k0 + c * 16;
+      const int r = i / C::kChunks, c = i % C::kChunks, kc = k0 + c * 16;
       const bool ok = m0 + r < m && kc < k;
-      cp_async16(as + swz(r, c), ok ? a + int64_t(m0 + r) * k + kc : a,
+      cp_async16(as + C::swz(r, c), ok ? a + int64_t(m0 + r) * k + kc : a,
                  ok ? 16 : 0);
     }
   };
-  auto load_b = [&](int stage, int kt) {
-    int8_t* bs = smem + stage * C::kStageBytes + BM * BK;
-    const int k0 = kt * BK;
+  auto load_b = [&](int8_t* bs, int kt) {
+    const int k0 = kt * C::BK;
 #pragma unroll
-    for (int it = 0; it < BN * 4 / C::kThreads; ++it) {
+    for (int it = 0; it < BN * C::kChunks / C::kThreads; ++it) {
       const int i = threadIdx.x + it * C::kThreads;
-      const int r = i >> 2, c = i & 3, kc = k0 + c * 16;
+      const int r = i / C::kChunks, c = i % C::kChunks, kc = k0 + c * 16;
       const int wr = w_row(r);
       const bool ok = wr >= 0 && kc < k;
-      cp_async16(bs + swz(r, c), ok ? w + int64_t(wr) * k + kc : w,
+      cp_async16(bs + C::swz(r, c), ok ? w + int64_t(wr) * k + kc : w,
                  ok ? 16 : 0);
     }
   };
+  int acc[C::MT][NT][4];
+  mma_ring<C>(smem, (k + C::BK - 1) / C::BK, load_a, load_b, acc);
 
-  int acc[MT][NT][4];
+  if constexpr (!GEGLU) {
+    store_tile<C>(acc, m0, n0, m, n, [&](int64_t row) { return sa[row]; },
+                  sw, bias, res, out);
+  } else {
+    // the C fragment's element e of n8 tile j sits at row g + 8 (e >> 1),
+    // column 8 j + 2 t + (e & 1) of the warp tile
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
+    const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < C::MT; ++i) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // The weights do not depend on the quantize pass that precedes this
-  // kernel in the stream, so their first tiles are requested before the
-  // grid-dependency wait (a no-op unless the launch let this grid start
-  // early); the quantized rows and their scales only after it.
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s)
-    if (s < ktiles) load_b(s, s);
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_a(s, s);
-    cp_async_commit();
-  }
-  // ldmatrix lane roles: lanes 8i..8i+7 give the rows of matrix i
-  const int li = lane / 8, lr = lane % 8;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();   // this thread's copies of tile kt are in
-    __syncthreads();                // everyone's are; stage kt-1 is free
-    if (kt + kStages - 1 < ktiles) {
-      load_a((kt + kStages - 1) % kStages, kt + kStages - 1);
-      load_b((kt + kStages - 1) % kStages, kt + kStages - 1);
-    }
-    cp_async_commit();
-    const int8_t* as = smem + (kt % kStages) * C::kStageBytes;
-    const int8_t* bs = as + BM * BK;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], as + swz(wm * C::WM + i * 16 + (li & 1) * 8 + lr,
-                                    2 * ks + (li >> 1)));
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t r[4];
-        ldmatrix_x4(r, bs + swz(wn * C::WN + j * 16 + (li >> 1) * 8 + lr,
-                                2 * ks + (li & 1)));
-        bfr[2 * j][0] = r[0];
-        bfr[2 * j][1] = r[1];
-        bfr[2 * j + 1][0] = r[2];
-        bfr[2 * j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-
-  // Epilogue from registers: the C fragment's element e of n8 tile j sits at
-  // row g + 8 (e >> 1), column 8 j + 2 t + (e & 1) of the warp tile.
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * C::WM + i * 16 + g + 8 * half;
-      if (row >= m) continue;
-      const float s_row = sa[row];
-      if constexpr (GEGLU) {
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm * C::WM + i * 16 + g + 8 * half;
+        if (row >= m) continue;
+        const float s_row = sa[row];
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) {
           const int col = n0 + (wn * C::WN / 16 + j) * 8 + 2 * t;
@@ -394,23 +239,6 @@ gemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
           *reinterpret_cast<float2*>(hout + int64_t(row) * n + col) =
               make_float2(h[0], h[1]);
         }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = n0 + wn * C::WN + j * 8 + 2 * t;
-          if (col >= n) continue;
-          const float2 sv = *reinterpret_cast<const float2*>(sw + col);
-          float y0 = dequant(acc[i][j][2 * half], s_row, sv.x, bias, col);
-          float y1 = dequant(acc[i][j][2 * half + 1], s_row, sv.y, bias,
-                             col + 1);
-          const int64_t o = int64_t(row) * n + col;
-          if (res) {
-            const float2 r2 = load2(res + o);
-            y0 = __fadd_rn(y0, r2.x);
-            y1 = __fadd_rn(y1, r2.y);
-          }
-          store2(out + o, y0, y1);
-        }
       }
     }
   }
@@ -425,66 +253,25 @@ cudaError_t launch_quantize(const T* x, const float* g, const float* b,
   return cudaGetLastError();
 }
 
-// The card's SM count, read once per process.
-int sm_count() {
-  static const int count = [] {
-    int dev = 0, v = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return count;
-}
-
-template <class C, bool GEGLU, typename T>
-cudaError_t launch_tile(const int8_t* a, const int8_t* w, const float* sa,
-                        const float* sw, const float* bias, const T* res,
-                        T* out, float* hout, int m, int n, int k,
-                        cudaStream_t s) {
-  auto kern = gemm_s8<C, GEGLU, T>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-  if (attr != cudaSuccess) return attr;
-  constexpr int cols = GEGLU ? C::BN / 2 : C::BN;
-  // A programmatic dependent launch (see gemm_s8's griddepcontrol.wait).
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + cols - 1) / cols, (m + C::BM - 1) / C::BM);
-  cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
-  cfg.stream = s;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, a, w, sa, sw, bias, res, out, hout, m,
-                            n, k);
-}
-
-// The tile whose busiest SM computes the fewest outputs: blocks spread over
-// the SMs in waves, and a 64 x 64 tile costs about 1.3x a 128 x 128 one per
-// output (it moves twice the bytes per output through shared memory and
-// L2).  The factor was read off an H100 80GB HBM3 with
-// cfgpp_tpu_torch/tools/int8_ab.py: 128 x 128 wins at 240 blocks on 132 SMs
-// (SD-1.5 level 1 to_qkv) and loses at 192 (level 0, N = 320).  No split
-// over k.  The GEGLU form writes only the f32 hidden state (T unused).
+// The tile by `large_tile_wins`; no split over k.  The GEGLU form writes
+// only the f32 hidden state (T unused).
 template <bool GEGLU, typename T>
 cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* sa,
                         const float* sw, const float* bias, const T* res,
                         T* out, float* hout, int m, int n, int k,
                         cudaStream_t s) {
-  auto cost = [&](int bm, int bn, int per_output_x10) -> int64_t {
-    const int cols = GEGLU ? bn / 2 : bn;
-    const int64_t blocks =
-        int64_t((m + bm - 1) / bm) * ((n + cols - 1) / cols);
-    return (blocks + sm_count() - 1) / sm_count() * bm * bn * per_output_x10;
+  auto grid = [&](int bm, int cols) {
+    return dim3((n + cols - 1) / cols, (m + bm - 1) / bm);
   };
-  if (cost(LargeTile::BM, LargeTile::BN, 10) <=
-      cost(SmallTile::BM, SmallTile::BN, 13))
-    return launch_tile<LargeTile, GEGLU, T>(a, w, sa, sw, bias, res, out, hout,
-                                            m, n, k, s);
-  return launch_tile<SmallTile, GEGLU, T>(a, w, sa, sw, bias, res, out, hout,
-                                          m, n, k, s);
+  constexpr int kLarge = GEGLU ? LargeTile::BN / 2 : LargeTile::BN;
+  constexpr int kSmall = GEGLU ? SmallTile::BN / 2 : SmallTile::BN;
+  if (large_tile_wins(m, n, kLarge, kSmall))
+    return launch_pdl<LargeTile, gemm_s8<LargeTile, GEGLU, T>>(
+        grid(LargeTile::BM, kLarge), 1, s, a, w, sa, sw, bias, res, out, hout,
+        m, n, k);
+  return launch_pdl<SmallTile, gemm_s8<SmallTile, GEGLU, T>>(
+      grid(SmallTile::BM, kSmall), 1, s, a, w, sa, sw, bias, res, out, hout, m,
+      n, k);
 }
 
 template <typename T>

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point, so it compiles in
-seconds without PyTorch's headers.  The shared library goes to
+seconds without PyTorch's headers (``int8_matmul.cu`` and ``int8_conv.cu``
+share the GEMM core in ``csrc/int8_gemm.cuh``).  The shared library goes to
 ``build/cfgpp_tpu_torch/`` at the repository root (git-ignored), named by a
-hash of the source and the flags: an unchanged source is built once and then
-only loaded.  Nothing here runs at import time; the first CUDA call of a
+hash of the source, the headers and the flags: an unchanged source is built
+once and then only loaded.  Nothing here runs at import time; the first CUDA call of a
 kernel wrapper builds and loads its library.
 """
 
@@ -48,8 +49,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

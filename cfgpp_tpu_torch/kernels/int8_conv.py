@@ -32,9 +32,13 @@ On a CUDA tensor x, the residual and the output are all bf16 or all f32
 must equal it.  An f32 output holds bf16-rounded values, exactly what JAX's
 bf16 result cast to f32 holds.
 
-`int8_conv3x3_stages` launches the same kernel and also returns the int8
-windows and their scales, so that a check can hold each stage against
-`conv_windows_reference` and `window_conv_reference`.
+The kernel quantizes each window once into an int8 buffer ``xq [B*H/br,
+br+2, W, C]`` (the layout of `conv_windows_reference`) and runs the conv as
+an implicit GEMM over it; `conv_gemm_operands_reference` builds that GEMM's
+operands the way the kernel addresses them.  `int8_conv3x3_stages`
+launches the same kernel and also returns the window buffer it read and the
+scales, so that a check can hold each stage against `conv_windows_reference`
+and `window_conv_reference`.
 
 ``conv_launches`` counts the kernel launches of this process
 (`reset_launches` sets it to 0).
@@ -168,21 +172,52 @@ def conv_windows_reference(xf: torch.Tensor, br: int):
     return torch.clamp(torch.round(win * inv), -127.0, 127.0), sx
 
 
+def window_sums_reference(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The int32 sums of the conv from quantized windows, exact in f64: xq
+    [nb, br+2, W, C] int8 values (int8 or f32), w_q [O, 3, 3, C] -> [nb, br,
+    W, O]."""
+    acc = F.conv2d(xq.double().permute(0, 3, 1, 2),
+                   w_q.double().permute(0, 3, 1, 2), padding=(0, 1))
+    return acc.permute(0, 2, 3, 1)
+
+
+def conv_gemm_operands_reference(xq: torch.Tensor, w_q: torch.Tensor):
+    """The kernel's implicit GEMM as explicit operands: (A [M, 9*C], B [O,
+    9*C]) with M = B*H*W output pixels and K in tap-major order (k = (dh*3 +
+    dw)*C + c), so that ``A @ B.T`` holds the conv's int32 sums by output
+    pixel (`window_sums_reference` reshaped to [M, O]).  Row m = (b*H + h)*W
+    + w of A gathers, for each tap (dh, dw), row (win, h mod br + dh, w + dw
+    - 1) of the window buffer xq [nb, br+2, W, C], win = (b*H + h) // br,
+    and zeros for a column outside [0, W): exactly the addresses ``conv_s8``
+    reads.  A plain function for the CPU tests; nothing on the card's path
+    calls it."""
+    nb, br2, w, c = xq.shape
+    br = br2 - 2
+    m = torch.arange(nb * br * w, device=xq.device)
+    row, col = m // w, m % w
+    win, hr = row // br, row % br
+    taps = []
+    for dh in range(3):
+        for dw in range(3):
+            src = col + dw - 1
+            inside = (src >= 0) & (src < w)
+            taps.append(torch.where(inside[:, None],
+                                    xq[win, hr + dh, src.clamp(0, w - 1)], 0))
+    return torch.cat(taps, dim=1), w_q.reshape(w_q.shape[0], 9 * c)
+
+
 def window_conv_reference(xq: torch.Tensor, sx: torch.Tensor,
                           w_q: torch.Tensor, w_scale: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           residual: Optional[torch.Tensor] = None,
                           batch: int = 1) -> torch.Tensor:
     """The kernel's GEMM and epilogue from quantized windows, in f32: xq
-    [nb, br+2, W, C] int8 values (int8 or f32) and sx [nb] -> [B, H, W, O].
-    The conv of the int8 values runs in f64, which holds every int32 sum
-    exactly; ``(acc*sx)*w_scale``, + bias, + residual."""
+    [nb, br+2, W, C] int8 values (int8 or f32) and sx [nb] -> [B, H, W, O]:
+    `window_sums_reference`, ``(acc*sx)*w_scale``, + bias, + residual."""
     nb, br2, w, c = xq.shape
     o = w_q.shape[0]
-    acc = F.conv2d(xq.double().permute(0, 3, 1, 2),
-                   w_q.double().permute(0, 3, 1, 2), padding=(0, 1))
-    y = acc.float().permute(0, 2, 3, 1) * sx.float()[:, None, None, None] \
-        * w_scale.float()
+    acc = window_sums_reference(xq, w_q)
+    y = acc.float() * sx.float()[:, None, None, None] * w_scale.float()
     if bias is not None:
         y = y + bias.float()
     y = y.reshape(batch, -1, w, o)
@@ -260,21 +295,25 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _f32(t: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
+    """Per-channel parameters as contiguous f32, 8-byte aligned (the kernel
+    reads them two at a time)."""
     if t is None:
         return None
     if t.device != dev:
         raise ValueError(f"expected a tensor on {dev}, got {t.device}")
-    return t.float().contiguous()
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
 def _activation(t: torch.Tensor, dev, dtype, name: str) -> torch.Tensor:
-    """An NHWC activation as contiguous ``dtype`` on ``dev`` (a
-    channels_last NCHW tensor seen through ``permute(0, 2, 3, 1)`` already
-    is)."""
+    """An NHWC activation as contiguous, 16-byte aligned ``dtype`` on ``dev``
+    (a channels_last NCHW tensor seen through ``permute(0, 2, 3, 1)``
+    already is contiguous)."""
     if t.device != dev or t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} "
                          f"on {t.device}")
-    return t.contiguous()
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel_dtype(x: torch.Tensor, out_dtype: torch.dtype) -> torch.dtype:
@@ -310,8 +349,7 @@ def int8_conv3x3(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                                       gn_bias, residual, out_dtype,
                                       block_rows)
     return int8_conv3x3_stages(x, w_q, w_scale, bias, gn_scale, gn_bias,
-                               residual, out_dtype, block_rows,
-                               want_windows=False)[0]
+                               residual, out_dtype, block_rows)[0]
 
 
 def int8_conv3x3_stages(x: torch.Tensor, w_q: torch.Tensor,
@@ -321,24 +359,23 @@ def int8_conv3x3_stages(x: torch.Tensor, w_q: torch.Tensor,
                         gn_bias: Optional[torch.Tensor] = None,
                         residual: Optional[torch.Tensor] = None,
                         out_dtype: torch.dtype = torch.bfloat16,
-                        block_rows: Optional[int] = None,
-                        want_windows: bool = True):
+                        block_rows: Optional[int] = None):
     """Launch the `int8_conv3x3` kernel on CUDA tensors and return ``(out,
-    xq, sx)``: the output, the int8 windows the kernel quantized [B*H/br,
-    br+2, W, C] and their f32 scales [B*H/br], which checks hold against
-    `conv_windows_reference`.  ``want_windows=False`` skips the copy of the
-    windows (``xq`` is then None)."""
+    xq, sx)``: the output, the int8 window buffer the kernel quantized and
+    its GEMM read [B*H/br, br+2, W, C] and their f32 scales [B*H/br], which
+    checks hold against `conv_windows_reference`."""
     _check_args(x, w_q, w_scale, gn_scale, gn_bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3: no kernel for {x.device}")
     dev, dt = x.device, _kernel_dtype(x, out_dtype)
     b, h, w, c = x.shape
     o = w_q.shape[0]
-    if c % 16 or w % 32:
-        raise ValueError(f"the kernel takes C in multiples of 16 and W in "
-                         f"multiples of 32; got C={c}, W={w}")
-    if w_q.device != dev or not w_q.is_contiguous():
-        raise ValueError(f"w_q must be contiguous on {dev}")
+    if c % 16 or o % 2:
+        raise ValueError(f"the kernel takes C in multiples of 16 and O in "
+                         f"multiples of 2; got C={c}, O={o}")
+    if w_q.device != dev or not w_q.is_contiguous() or w_q.data_ptr() % 16:
+        raise ValueError(f"w_q must be contiguous and 16-byte aligned on "
+                         f"{dev}")
     br = _window_rows(x, w_q, block_rows)
     nb = b * h // br
     xc = _activation(x, dev, dt, "x")
@@ -349,14 +386,13 @@ def int8_conv3x3_stages(x: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((b, h, w, o), dtype=dt, device=dev)
     amax = torch.empty((nb,), dtype=torch.int32, device=dev)
     sx = torch.empty((nb,), dtype=torch.float32, device=dev)
-    xq = (torch.empty((nb, br + 2, w, c), dtype=torch.int8, device=dev)
-          if want_windows else None)
+    xq = torch.empty((nb, br + 2, w, c), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), _ENTRIES[dt])(
             xc.data_ptr(), w_q.data_ptr(), ws.data_ptr(), _ptr(bs), _ptr(gs),
             _ptr(gb), _ptr(res), out.data_ptr(), amax.data_ptr(),
-            sx.data_ptr(), _ptr(xq), b, h, w, c, o, br, stream)
+            sx.data_ptr(), xq.data_ptr(), b, h, w, c, o, br, stream)
     if err:
         raise RuntimeError(f"int8_conv3x3 kernel launch failed: CUDA error "
                            f"{err} (x {tuple(x.shape)}, w {tuple(w_q.shape)},"

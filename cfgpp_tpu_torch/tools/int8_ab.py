@@ -1,14 +1,17 @@
-"""A/B of builds of the port's int8 GEMM library on one GPU.
+"""A/B of builds of the port's int8 GEMM or int8 conv library on one GPU.
 
     python3 -m cfgpp_tpu_torch.tools.int8_ab --baseline OLD/int8_matmul.cu \
-        [--variant NAME=OTHER.cu ...] [--rounds 2] [--out FILE.json]
+        [--library int8_conv] [--variant NAME=OTHER.cu ...] [--rounds 2] \
+        [--out FILE.json]
 
 Run from the repository root on a machine with an NVIDIA GPU, nvcc and
 PyTorch for CUDA.  ``--baseline`` (e.g. the parent commit's source, from
 ``git show``) and each ``--variant`` are other versions of
-``cfgpp_tpu_torch/csrc/int8_matmul.cu`` with the same C entry points.  All
-are built with the port's nvcc flags and swapped under the same wrappers,
-so everything else in the process is the same.  In order:
+``cfgpp_tpu_torch/csrc/<library>.cu`` (``int8_matmul``, the default, or
+``int8_conv``) with the same C entry points; ``csrc/`` is on their include
+path, so they may include its headers.  All are built with the port's nvcc
+flags and swapped under the same wrappers, so everything else in the
+process is the same.  For ``int8_matmul``, in order:
 
 1. per shape of ``chip_smoke.py``'s ``INT8_MATMUL_CASES`` and
    ``INT8_FF_CASES``: each build against the plain version (chip_smoke's
@@ -25,6 +28,19 @@ so everything else in the process is the same.  In order:
    PyTorch's default TF32 for convs; then one profiled request of each
    (``torch.profiler``): device time, the GEMM and quantize kernels' share,
    the busy share against the unprofiled median.  ``--rounds 0`` skips it.
+
+For ``int8_conv``:
+
+1. per shape of ``chip_smoke.py``'s ``CONV_CASES``, in bf16 and in f32:
+   each build against the plain version (exact without the prologue, one
+   bf16 ulp with it; a failure stops the run; a shape a build refuses is
+   not timed for it), its time per call in turns,
+   one profiled window of calls per build (device time per call by kernel
+   name), cuDNN's bf16 conv of the dequantized weights as the yardstick,
+   and the bound (``utils/roofline.py``); per-request sums;
+2. ``--quant all`` requests as above, the baseline and this build in turns,
+   then one profiled request of each (device time, the conv kernels' share,
+   busy share).
 
 Prints a line per measurement with the card's name and power limit, and
 one JSON object as the last line (also written to ``--out``).
@@ -69,12 +85,19 @@ def parent_dequant_conv(self, x, gn_scale, gn_bias, residual):
     return y.to(dt)
 
 
-def build(cs, src: Path, out: Path) -> ctypes.CDLL:
+# Kernel names of each library in a profiler trace (device time by name).
+PROFILED = {"int8_matmul": ("gemm_s8", "quantize_rows"),
+            "int8_conv": ("conv3x3_s8", "conv_s8", "quantize_windows",
+                          "window_amax")}
+
+
+def build(cs, src: Path, out: Path, library: str) -> ctypes.CDLL:
     from cfgpp_tpu_torch.kernels import build as kb
 
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(out),
-                           str(src)], capture_output=True, text=True)
+    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-I", str(kb.CSRC_DIR),
+                           "-o", str(out), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode:
         cs.fail(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     usage = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
@@ -82,6 +105,11 @@ def build(cs, src: Path, out: Path) -> ctypes.CDLL:
     print(f"  built {src} -> {out.name}: {'; '.join(usage)}", flush=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
+    if library == "int8_conv":
+        for fn in (lib.cfgpp_int8_conv3x3, lib.cfgpp_int8_conv3x3_f32):
+            fn.argtypes = [p] * 11 + [i] * 6 + [p]
+            fn.restype = i
+        return lib
     lib.cfgpp_int8_matmul.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
     lib.cfgpp_int8_ff_geglu.argtypes = [p] * 16 + [i] * 5 + [ctypes.c_float, p]
     lib.cfgpp_int8_matmul.restype = lib.cfgpp_int8_ff_geglu.restype = i
@@ -186,40 +214,138 @@ def shapes(cs, tk, libs, card) -> list:
     return rows
 
 
-def device_profile(cs, engine) -> dict:
+def device_times(fn, keys) -> dict:
+    """Device seconds of one run of ``fn`` under ``torch.profiler``: all
+    device events, their count, and the kernels whose names hold each of
+    ``keys``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        engine.sample(["", cs.PROMPTS[0]], cfg_guidance=cs.GUIDANCE,
-                      seed=cs.SEED, resolution=cs.RESOLUTION)
+        fn()
         torch.cuda.synchronize()
-    got = {"device_s": 0.0, "gemm_s8_s": 0.0, "quantize_rows_s": 0.0,
-           "kernels": 0}
+    got = {"device_s": 0.0, "kernels": 0, **{f"{k}_s": 0.0 for k in keys}}
     for e in prof.events():   # device events: kernels, copies, memsets
         if e.device_type == torch.autograd.DeviceType.CUDA:
             s = e.time_range.elapsed_us() / 1e6
             got["device_s"] += s
             got["kernels"] += 1
-            for key in ("gemm_s8", "quantize_rows"):
+            for key in keys:
                 if key in e.name:
                     got[f"{key}_s"] += s
+                    break
     return got
 
 
-def requests(cs, tk, libs, card, rounds) -> dict:
+def device_profile(cs, engine, keys) -> dict:
+    return device_times(lambda: engine.sample(
+        ["", cs.PROMPTS[0]], cfg_guidance=cs.GUIDANCE, seed=cs.SEED,
+        resolution=cs.RESOLUTION), keys)
+
+
+def conv_shapes(cs, tc, rl, libs, card) -> list:
+    """Per CONV_CASES shape, bf16 then f32: every build against the plain
+    version, times in turns, a profiled window per build, the bf16 conv of
+    the dequantized weights and the bound."""
+    from cfgpp_tpu_torch.models.quant import quantize_conv_kernel_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    setups = {name: (lambda lib=lib: setattr(tc, "_lib", lambda: lib))
+              for name, lib in libs.items()}
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for site, (b, h, w, c), o, gn, res, br, calls in cs.CONV_CASES:
+            x = randn(b, h, w, c).to(dt)
+            wq, ws = quantize_conv_kernel_int8(randn(o, c, 3, 3,
+                                                     scale=(9 * c) ** -0.5))
+            kw = dict(bias=randn(o, scale=0.1), block_rows=br, out_dtype=dt)
+            if gn:
+                kw.update(gn_scale=1.0 + randn(b, c, scale=0.2),
+                          gn_bias=randn(b, c, scale=0.3))
+            if res:
+                kw["residual"] = randn(b, h, w, o).to(dt)
+            want = tc.int8_conv3x3_reference(x, wq, ws, **kw)
+            scale = want.float().abs().max().item()
+
+            def run(x=x, wq=wq, ws=ws, kw=kw):
+                return tc.int8_conv3x3(x, wq, ws, **kw)
+
+            errs, kernels = {}, {}
+            for name in libs:
+                setups[name]()
+                try:
+                    out = run()
+                except RuntimeError as e:   # a shape this build does not take
+                    errs[name] = f"refused: {e}"
+                    continue
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs().max().item()
+                off = cs.beyond_one_ulp(out, want)
+                ok = (err <= cs.KERNEL_REL_TOL * scale
+                      and off <= cs.ULP_SHARE) if gn else err == 0.0
+                cs.check(ok and bool(torch.isfinite(out).all()),
+                         f"{name} build disagrees with the plain version at"
+                         f" int8_conv3x3 {site} {dt}: max err {err:.3e},"
+                         f" {off:.2e} beyond one ulp")
+                errs[name] = err
+                prof = device_times(lambda: [run() for _ in range(10)],
+                                    PROFILED["int8_conv"])
+                kernels[name] = {k[:-2]: v * 1e3 / 10 for k, v in prof.items()
+                                 if k.endswith("_s") and v}
+            ms = turns({n: setups[n] for n in kernels}, lambda: cs.time_ms(run))
+            mean = {name: statistics.mean(v) for name, v in ms.items()}
+            row = {"kernel": "int8_conv3x3", "site": site, "dtype": str(dt),
+                   "calls_per_request": calls, "max_abs_err": errs, "ms": ms,
+                   "ms_mean": mean, "device_ms_by_kernel": kernels,
+                   "bound_ms": rl.int8_conv3x3(
+                       b, h, w, c, o, groupnorm=gn, residual=res,
+                       act=rl.BF16 if dt == torch.bfloat16 else rl.F32
+                   ).bound_ms()}
+            if dt == torch.bfloat16:
+                wf = (wq.float() * ws[:, None, None, None]).bfloat16().permute(
+                    0, 3, 1, 2)
+                xc = x.permute(0, 3, 1, 2)
+                row["bf16_dequant_conv_ms"] = cs.time_ms(
+                    lambda: F.conv2d(xc, wf, padding=1))
+            rows.append(row)
+            shown = " ".join(f"{name} {v:.4f}" for name, v in mean.items())
+            split = "; ".join(
+                f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in ks.items())
+                for name, ks in kernels.items())
+            print(f"  int8_conv3x3 {site} {dt}: ms {shown}; bound"
+                  f" {row['bound_ms']:.4f}; bf16 dequant conv"
+                  f" {row.get('bf16_dequant_conv_ms', float('nan')):.4f};"
+                  f" profiled ms per call by kernel: {split} [{card}]",
+                  flush=True)
+    for dt in ("torch.bfloat16", "torch.float32"):
+        sums = {name: sum(r["calls_per_request"] * r["ms_mean"][name]
+                          for r in rows
+                          if r["dtype"] == dt and r["calls_per_request"])
+                for name in libs}
+        print(f"  int8_conv3x3 {dt} per request (calls x mean ms): "
+              + " ".join(f"{name} {v:.3f}" for name, v in sums.items())
+              + f" [{card}]", flush=True)
+    return rows
+
+
+def requests(cs, tk, tc, libs, card, rounds, library) -> dict:
     from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
     from cfgpp_tpu_torch.models import quant
 
     bundle = ModelBundle.random_init("sd15", seed=0, dtype=torch.bfloat16,
                                      device="cuda")
     state = ExitStack()
+    mod = tc if library == "int8_conv" else tk
 
     def setup(lib, bf16_conv=False, tf32=False):
         def go():
             state.close()
-            tk._lib = lambda: lib
+            mod._lib = lambda: lib
             torch.backends.cudnn.allow_tf32 = tf32
             if bf16_conv:
                 state.enter_context(mock.patch.object(
@@ -235,6 +361,9 @@ def requests(cs, tk, libs, card, rounds) -> dict:
             "gemm, f32 conv, tf32 off": setup(change),
             "gemm, f32 conv, tf32 on": setup(change, tf32=True)}),
     }
+    if library == "int8_conv":
+        paths = {"all": ("all", {"baseline": setup(base),
+                                 "change": setup(change)})}
     out = {}
     for path, (mode, setups) in paths.items():
         engine = DiffusionEngine(bundle.quantized(mode), "ddim_cfg++",
@@ -258,16 +387,16 @@ def requests(cs, tk, libs, card, rounds) -> dict:
         out[path] = {}
         for name, go in setups.items():
             go()
-            prof = device_profile(cs, engine)
+            prof = device_profile(cs, engine, PROFILED[library])
             med = statistics.median(seconds[name])
             out[path][name] = {"s_per_image": seconds[name], "median_s": med,
                                **prof, "busy_share": prof["device_s"] / med}
+            split = ", ".join(f"{k[:-2]} {prof[k]:.4f} s"
+                              for k in (f"{n}_s" for n in PROFILED[library]))
             print(f"  {path} {name}: s/image"
                   f" {[round(s, 4) for s in seconds[name]]} median {med:.4f};"
                   f" profiled request: device {prof['device_s']:.4f} s"
-                  f" ({prof['kernels']} kernels), gemm_s8"
-                  f" {prof['gemm_s8_s']:.4f} s, quantize_rows"
-                  f" {prof['quantize_rows_s']:.4f} s, busy"
+                  f" ({prof['kernels']} kernels), {split}, busy"
                   f" {prof['device_s'] / med:.1%} of the median [{card}]",
                   flush=True)
         state.close()
@@ -280,6 +409,8 @@ def requests(cs, tk, libs, card, rounds) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, required=True)
+    ap.add_argument("--library", choices=sorted(PROFILED),
+                    default="int8_matmul")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=PATH of a further build to time per shape")
     ap.add_argument("--rounds", type=int, default=2,
@@ -292,26 +423,32 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from cfgpp_tpu_torch.kernels import build as kb
+    from cfgpp_tpu_torch.kernels import int8_conv as tc
     from cfgpp_tpu_torch.kernels import int8_matmul as tk
+    from cfgpp_tpu_torch.utils import roofline as rl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_name_and_power()
     print(card, flush=True)
     srcs = {"baseline": args.baseline,
-            "change": kb.CSRC_DIR / "int8_matmul.cu"}
+            "change": kb.CSRC_DIR / f"{args.library}.cu"}
     for item in args.variant:
         name, _, path = item.partition("=")
         srcs[name] = Path(path)
     cs.build_all(kb)
     with ThreadPoolExecutor(len(srcs)) as pool:
         futs = {name: pool.submit(build, cs, src,
-                                  kb.BUILD_DIR / f"int8_ab_{i}.so")
+                                  kb.BUILD_DIR / f"{args.library}_ab_{i}.so",
+                                  args.library)
                 for i, (name, src) in enumerate(srcs.items())}
         libs = {name: f.result() for name, f in futs.items()}
-    result = {"card": card, "shapes": shapes(cs, tk, libs, card)}
+    rows = (conv_shapes(cs, tc, rl, libs, card) if args.library == "int8_conv"
+            else shapes(cs, tk, libs, card))
+    result = {"card": card, "library": args.library, "shapes": rows}
     if args.rounds:
-        result["requests"] = requests(cs, tk, libs, card, args.rounds)
+        result["requests"] = requests(cs, tk, tc, libs, card, args.rounds,
+                                      args.library)
     line = json.dumps(result)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -194,3 +194,16 @@ def test_build_lists_every_source():
     srcs = sorted(p.stem for p in Path(build.CSRC_DIR).glob("*.cu"))
     assert sorted(build.LIBRARIES) == srcs
     assert "flash_attention_f32" in srcs
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """A library is rebuilt when a header its sources share changes
+    (``int8_matmul.cu`` and ``int8_conv.cu`` include ``int8_gemm.cuh``)."""
+    assert (Path(build.CSRC_DIR) / "int8_gemm.cuh").is_file()
+    (tmp_path / "k.cu").write_text('#include "core.cuh"\n')
+    (tmp_path / "core.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "core.cuh").write_text("// two\n")
+    assert build.library_path("k") != first
