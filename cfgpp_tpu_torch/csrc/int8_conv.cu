@@ -41,18 +41,18 @@
 //      and writes half as many bytes; the buffer (2.9-6.6 MB at the SD-1.5
 //      sites) stays in L2 for the GEMM.
 //   3. `conv_s8`: an implicit GEMM, M = B*H*W output pixels, N = O,
-//      K = 9*C in tap-major order, on the core shared with int8_matmul.cu
-//      (int8_gemm.cuh: mma.sync m16n8k32, ldmatrix on swizzled rows, a
-//      cp.async ring, the register epilogue, a programmatic dependent
-//      launch that requests the first weight tiles before it waits for the
-//      windows), in 128 x 128 tiles with 128-byte k steps.  The A tile of
-//      k step (tap (dh, dw), channels c0..c0+127) is a gather: output
-//      pixel (b, h, w) reads row (win, h mod br + dh, w + dw - 1) of the
-//      window buffer, win = (b*H + h)/br, by 16-byte cp.async; columns
-//      outside [0, W) and channels past C take the zero-fill form.  So no
-//      shifted copies and no padding columns exist, and a tile may
-//      straddle windows: the epilogue scales each row by its own pixel's
-//      window scale.
+//      K = 9*C in tap-major order, on int8_gemm.cuh (the mma.sync m16n8k32,
+//      ldmatrix, swizzle and cp.async primitives int8_matmul.cu also uses,
+//      and its mma_ring / store_tile: the ring, the register epilogue, a
+//      programmatic dependent launch that requests the first weight tiles
+//      before it waits for the windows), in 128 x 128 tiles with 128-byte k
+//      steps.  The A tile of k step (tap (dh, dw), channels c0..c0+127) is
+//      a gather: output pixel (b, h, w) reads row (win, h mod br + dh,
+//      w + dw - 1) of the window buffer, win = (b*H + h)/br, by 16-byte
+//      cp.async; columns outside [0, W) and channels past C take the
+//      zero-fill form.  So no shifted copies and no padding columns exist,
+//      and a tile may straddle windows: the epilogue scales each row by its
+//      own pixel's window scale.
 //   The 32^2 sites have 80-160 output tiles for 264 resident-block slots,
 //   so the k loop is split over up to 4 blocks of a thread block cluster,
 //   which add their int32 sums through distributed shared memory before
@@ -220,7 +220,7 @@ quantize_windows(const T* __restrict__ x, const float* __restrict__ gs,
 // and the dequant comes after them, so the output equals the unsplit one.
 template <class Cfg, typename T, class RowScale>
 __device__ __forceinline__ void reduce_cluster_tile(
-    const Acc<Cfg>& acc, int8_t* smem, int64_t m0, int n0, int64_t m, int O,
+    const Acc<Cfg>& acc, int8_t* smem, int m0, int n0, int m, int O,
     const RowScale& row_scale, const float* __restrict__ ws,
     const float* __restrict__ bias, const T* __restrict__ res,
     T* __restrict__ out) {
@@ -256,7 +256,7 @@ __device__ __forceinline__ void reduce_cluster_tile(
       sum.x += v.x;
       sum.y += v.y;
     }
-    const int64_t row = m0 + r;
+    const int row = m0 + r;
     if (row < m && n0 + c < O)
       store_pair(sum.x, sum.y, row_scale(row), ws, bias, res, out, row, n0 + c, O);
   }
@@ -273,13 +273,13 @@ __global__ void __launch_bounds__(Cfg::kThreads)
 conv_s8(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
         const float* __restrict__ sx, const float* __restrict__ ws,
         const float* __restrict__ bias, const T* __restrict__ res,
-        T* __restrict__ out, int64_t m, int W, int C, int O, int br,
+        T* __restrict__ out, int m, int W, int C, int O, int br,
         int ksteps) {
   extern __shared__ __align__(128) int8_t smem[];
   constexpr int kCopiesA = Cfg::BM * Cfg::kChunks / Cfg::kThreads;
   constexpr int kCopiesB = Cfg::BN * Cfg::kChunks / Cfg::kThreads;
   constexpr int BK = Cfg::BK, kRowStep = Cfg::kThreads / Cfg::kChunks;
-  const int64_t m0 = blockIdx.y * int64_t(Cfg::BM);
+  const int m0 = blockIdx.y * Cfg::BM;
   const int n0 = blockIdx.x * Cfg::BN;
   const int chunks = (C + BK - 1) / BK;        // k steps per tap
 
@@ -293,7 +293,7 @@ conv_s8(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
   unsigned a_dw[kCopiesA];
 #pragma unroll
   for (int it = 0; it < kCopiesA; ++it) {
-    const int64_t p = m0 + r0 + it * kRowStep;
+    const int p = m0 + r0 + it * kRowStep;
     const int64_t row = p / W;               // b*H + h
     const int col = int(p % W);
     a_src[it] = xq + (((row / br) * (br + 2) + row % br) * W + col) * C + c * 16;
@@ -336,7 +336,7 @@ conv_s8(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
   mma_ring<Cfg>(smem, min(ksteps, 9 * chunks - kt0),
                 [&](int8_t* as, int kt) { load_a(as, kt0 + kt); },
                 [&](int8_t* bs, int kt) { load_b(bs, kt0 + kt); }, acc);
-  auto row_scale = [&](int64_t row) { return sx[row / W / br]; };
+  auto row_scale = [&](int row) { return sx[row / W / br]; };
   if (gridDim.z > 1)
     reduce_cluster_tile<Cfg>(acc, smem, m0, n0, m, O, row_scale, ws, bias, res,
                              out);
@@ -351,10 +351,10 @@ conv_s8(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
 // split up to 4: at the SD-1.5 sites this picks 2, 4, 4 and 1 (160, 80, 80
 // and 320 tiles on 264 slots), each within 2% of the best measured.
 template <typename T>
-int conv_splits(int64_t m, int O) {
+int conv_splits(int m, int O) {
   const int64_t slots =
       int64_t(sm_count()) * blocks_per_sm<ConvTile, conv_s8<ConvTile, T>>();
-  const int64_t tiles = (m + ConvTile::BM - 1) / ConvTile::BM *
+  const int64_t tiles = int64_t((m + ConvTile::BM - 1) / ConvTile::BM) *
                         ((O + ConvTile::BN - 1) / ConvTile::BN);
   return int(std::min<int64_t>(kMaxSplits, (slots + tiles - 1) / tiles));
 }
@@ -388,11 +388,11 @@ cudaError_t launch(const T* x, const int8_t* w, const float* ws,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int64_t m = int64_t(B) * H * W;
+  const int m = B * H * W;   // < 2^30: qgroups >= 2 m (C >= 16) < 2^31
   const int splits = conv_splits<T>(m, O);
   const int ksteps = 9 * ((C + ConvTile::BK - 1) / ConvTile::BK);
   const dim3 grid((O + ConvTile::BN - 1) / ConvTile::BN,
-                  unsigned((m + ConvTile::BM - 1) / ConvTile::BM), splits);
+                  (m + ConvTile::BM - 1) / ConvTile::BM, splits);
   return launch_pdl<ConvTile, conv_s8<ConvTile, T>>(
       grid, splits, s, xq, w, sx, ws, bias, res, out, m, W, C, O, br,
       (ksteps + splits - 1) / splits);

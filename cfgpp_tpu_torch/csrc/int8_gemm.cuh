@@ -12,8 +12,11 @@
 //   while step k computes.  The caller's loaders say where each tile row's
 //   16-byte chunks come from; chunks outside the operands are written as
 //   zeros without a read (the zero-fill form), so they add nothing.
-// - `store_tile`: the epilogue from registers, in the plain versions' _rn
-//   order: ((acc * s_row) * sw) + bias, + residual, one rounding to bf16.
+// - `store_tile` / `store_pair`: the epilogue from registers, in the plain
+//   versions' _rn order: ((acc * s_row) * sw) + bias, + residual, one
+//   rounding to bf16.  conv_s8 runs mma_ring and store_tile; gemm_s8 writes
+//   the same loop and tile walk out itself (int8_matmul.cu says why) and
+//   calls store_pair.
 //   Each thread holds pairs of adjacent columns of the m16n8 C fragment,
 //   reads the weight scales as float2 and the residual as bf16x2 / float2,
 //   and stores bf16x2, or for f32 activations the bf16-rounded pair widened
@@ -207,12 +210,12 @@ __device__ __forceinline__ void store_pair(int acc0, int acc1, float s_row,
                                            const float* __restrict__ sw,
                                            const float* __restrict__ bias,
                                            const T* __restrict__ res,
-                                           T* __restrict__ out, int64_t row,
+                                           T* __restrict__ out, int row,
                                            int col, int n) {
   const float2 sv = *reinterpret_cast<const float2*>(sw + col);
   float y0 = dequant(acc0, s_row, sv.x, bias, col);
   float y1 = dequant(acc1, s_row, sv.y, bias, col + 1);
-  const int64_t o = row * n + col;
+  const int64_t o = int64_t(row) * n + col;
   if (res) {
     const float2 r2 = load2(res + o);
     y0 = __fadd_rn(y0, r2.x);
@@ -226,8 +229,8 @@ __device__ __forceinline__ void store_pair(int acc0, int acc1, float s_row,
 // element e of n8 tile j sits at row g + 8 (e >> 1), column 8 j + 2 t +
 // (e & 1) of the warp tile.  n is even.
 template <class C, typename T, class RowScale>
-__device__ __forceinline__ void store_tile(const Acc<C>& acc, int64_t m0, int n0,
-                                           int64_t m, int n,
+__device__ __forceinline__ void store_tile(const Acc<C>& acc, int m0, int n0,
+                                           int m, int n,
                                            const RowScale& row_scale,
                                            const float* __restrict__ sw,
                                            const float* __restrict__ bias,
@@ -240,7 +243,7 @@ __device__ __forceinline__ void store_tile(const Acc<C>& acc, int64_t m0, int n0
   for (int i = 0; i < C::MT; ++i) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int64_t row = m0 + wm * C::WM + i * 16 + g + 8 * half;
+      const int row = m0 + wm * C::WM + i * 16 + g + 8 * half;
       if (row >= m) continue;
       const float s_row = row_scale(row);
 #pragma unroll
@@ -284,15 +287,13 @@ inline bool large_tile_wins(int64_t m, int n, int cols_large, int cols_small) {
 
 // Launch kernel `Kern` as a programmatic dependent of the work before it
 // in stream s (see mma_ring's griddepcontrol.wait), with C::kSmem bytes of
-// dynamic shared memory and, where cluster_z > 1, thread block clusters of
-// cluster_z blocks along z.  The shared memory is allowed on every launch,
-// not once in a function-local static: such a static is one object across
-// all loaded builds of a source (a GNU unique symbol), so a second build
-// loaded in the same process (int8_ab.py) would launch without it.
+// dynamic shared memory (allowed once per kernel and library: the build's
+// -fno-gnu-unique keeps this static apart in each loaded library) and,
+// where cluster_z > 1, thread block clusters of cluster_z blocks along z.
 template <class C, auto Kern, class... Args>
 cudaError_t launch_pdl(dim3 grid, unsigned cluster_z, cudaStream_t s,
                        Args... args) {
-  const cudaError_t attr = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return attr;
   cudaLaunchAttribute attrs[2];

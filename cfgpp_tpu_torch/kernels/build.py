@@ -27,8 +27,13 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 LIBRARIES = ("flash_attention", "flash_attention_f32", "flash_attention_int8",
              "int8_conv", "int8_matmul")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cfgpp_tpu_torch"
+# -fno-gnu-unique: a function-local static of a template (e.g. the shared
+# memory allowance in csrc/int8_gemm.cuh's launch_pdl) is otherwise one
+# object across every loaded library that instantiates the same template, so
+# a second build of a source loaded in one process (tools/int8_ab.py) would
+# skip its own kernels' set-up.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique", "-Xptxas", "-v")
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 
