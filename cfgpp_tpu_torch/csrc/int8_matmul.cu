@@ -152,8 +152,11 @@ quantize_rows(const T* __restrict__ x, const float* __restrict__ g,
 // out rows [m0, m0+BM) x cols [n0, n0+BN) of a . w^T, a [m, k], w [rows, k]
 // int8, both k-contiguous, on int8_gemm.cuh's primitives.  Its k loop and
 // epilogue are written out here rather than taken from the header's
-// mma_ring / store_tile (which int8_conv.cu runs): on those, with the same
-// instruction count, it measured 0.65% slower per request on an H100.
+// mma_ring / store_tile (which int8_conv.cu runs): on those nvcc emits the
+// same instructions with other registers and in another order, and
+// int8_matmul measured 0.45% slower per SD-1.5 --quant dense request on an
+// H100 (median of 20 readings in turns, quartiles 0.41-0.55%;
+// cfgpp_tpu_torch/tools/int8_ab.py --pairs 10).
 // GEGLU: w has 2n rows (value rows, then gate rows) and a block covers BN/2
 // hidden columns: each 16-row group of the B tile holds 8 value rows
 // n0+8j.. and then the same 8 columns' gate rows n+n0+8j.., so a warp's n8

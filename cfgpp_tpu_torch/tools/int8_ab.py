@@ -2,7 +2,7 @@
 
     python3 -m cfgpp_tpu_torch.tools.int8_ab --baseline OLD/int8_matmul.cu \
         [--library int8_conv] [--variant NAME=OTHER.cu ...] [--rounds 2] \
-        [--out FILE.json]
+        [--pairs 1] [--out FILE.json]
 
 Run from the repository root on a machine with an NVIDIA GPU, nvcc and
 PyTorch for CUDA.  ``--baseline`` (e.g. the parent commit's source, from
@@ -17,8 +17,10 @@ process is the same.  For ``int8_matmul``, in order:
    ``INT8_FF_CASES``: each build against the plain version (chip_smoke's
    rule: exact without a LayerNorm, one bf16 ulp with one; a failure stops
    the run), its time per call in turns (the builds in order, then in
-   reverse; CUDA events, 20 calls queued behind a device spin), and
-   ``torch._int_mm`` on the same int8 operands; per-request sums;
+   reverse, ``--pairs`` times; CUDA events, 20 calls queued behind a device
+   spin), and ``torch._int_mm`` on the same int8 operands; per-request
+   sums, and for each build the ratio of its per-request sum to this
+   build's, reading by reading, with its median and quartiles;
 2. SD-1.5 ``ddim_cfg++`` requests at chip_smoke's settings (random weights
    from seed 0, 512^2, 50 NFE, batch 1), ``--rounds`` rounds: ``--quant
    dense`` with the baseline and this build in turns, and ``--quant all``
@@ -116,16 +118,23 @@ def build(cs, src: Path, out: Path, library: str) -> ctypes.CDLL:
     return lib
 
 
-def turns(setups: dict, measure) -> dict:
-    """Each setup in order, then in reverse; {name: [two readings]}."""
+def turns(setups: dict, measure, pairs: int = 1) -> dict:
+    """Each setup in order, then in reverse, ``pairs`` times; {name: [2 x
+    pairs readings]}."""
     got = {name: [] for name in setups}
-    for name in list(setups) + list(reversed(setups)):
-        setups[name]()
-        got[name].append(measure())
+    for _ in range(pairs):
+        for name in list(setups) + list(reversed(setups)):
+            setups[name]()
+            got[name].append(measure())
     return got
 
 
-def shapes(cs, tk, libs, card) -> list:
+def quartiles(v: list) -> str:
+    q1, med, q3 = statistics.quantiles(v, n=4, method="inclusive")
+    return f"{med:.4f} [{q1:.4f}, {q3:.4f}]"
+
+
+def shapes(cs, tk, libs, card, pairs) -> list:
     from cfgpp_tpu_torch.models.quant import quantize_kernel_int8
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -195,7 +204,7 @@ def shapes(cs, tk, libs, card) -> list:
                      f"{kernel} {site}: max err {err:.3e}, {off:.2e} beyond "
                      "one ulp")
             errs[name] = err
-        ms = turns(setups, lambda: cs.time_ms(run))
+        ms = turns(setups, lambda: cs.time_ms(run), pairs)
         mean = {name: statistics.mean(v) for name, v in ms.items()}
         product_ms = cs.time_ms(product)
         rows.append({"kernel": kernel, "site": site, "calls_per_request": calls,
@@ -204,12 +213,24 @@ def shapes(cs, tk, libs, card) -> list:
         shown = " ".join(f"{name} {v:.4f}" for name, v in mean.items())
         print(f"  {kernel} {site}: ms {shown}; _int_mm {product_ms:.4f}"
               f" [{card}]", flush=True)
-    for kernel in ("int8_matmul", "int8_ff_geglu"):
+    for kernel in ("int8_matmul", "int8_ff_geglu", None):
+        mine = [r for r in rows if kernel in (None, r["kernel"])]
         sums = {name: sum(r["calls_per_request"] * r["ms_mean"][name]
-                          for r in rows if r["kernel"] == kernel)
+                          for r in mine)
                 for name in libs}
-        print(f"  {kernel} per request (calls x mean ms): "
+        print(f"  {kernel or 'both'} per request (calls x mean ms): "
               + " ".join(f"{name} {v:.3f}" for name, v in sums.items())
+              + f" [{card}]", flush=True)
+        # reading i of every shape, summed over the request
+        readings = {name: [sum(r["calls_per_request"] * r["ms"][name][i]
+                               for r in mine) for i in range(2 * pairs)]
+                    for name in libs}
+        print(f"  {kernel or 'both'} per request, median [quartiles] over"
+              f" {2 * pairs} readings: "
+              + "; ".join(f"{name} {quartiles(v)} ms, / change "
+                          + quartiles([a / b for a, b in zip(
+                              v, readings["change"])])
+                          for name, v in readings.items())
               + f" [{card}]", flush=True)
     return rows
 
@@ -415,6 +436,8 @@ def main() -> None:
                     help="NAME=PATH of a further build to time per shape")
     ap.add_argument("--rounds", type=int, default=2,
                     help="rounds of requests; 0: per-shape times only")
+    ap.add_argument("--pairs", type=int, default=1,
+                    help="int8_matmul: rounds of per-shape turns")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -444,7 +467,7 @@ def main() -> None:
                 for i, (name, src) in enumerate(srcs.items())}
         libs = {name: f.result() for name, f in futs.items()}
     rows = (conv_shapes(cs, tc, rl, libs, card) if args.library == "int8_conv"
-            else shapes(cs, tk, libs, card))
+            else shapes(cs, tk, libs, card, args.pairs))
     result = {"card": card, "library": args.library, "shapes": rows}
     if args.rounds:
         result["requests"] = requests(cs, tk, tc, libs, card, args.rounds,

@@ -82,12 +82,13 @@ ROOT = Path(__file__).resolve().parent
 #   A fused LayerNorm sums its statistics in another order than torch, which
 #   flips a few int8 levels; there the output is held to the CPU tests' rule
 #   ("ulp": no more than ULP_SHARE of the elements beyond one bf16 ulp of
-#   the plain output, none beyond KERNEL_REL_TOL x max |plain|).  A flipped
-#   level moves its whole output row (and, in the feed-forward, the row's
-#   hidden state and requantize), so the rows whose int8 input the
-#   LayerNorm flipped are left out of the share: one such row is 1/512 of
-#   the outputs at level 2, more than ULP_SHARE.  The stage checks bound
-#   the flips (LN_FLIP_SHARE) and hold every later stage exactly.
+#   the plain output, none beyond KERNEL_REL_TOL x max |plain|).  On f32
+#   activations a flipped level moves its whole output row (and, in the
+#   feed-forward, the row's hidden state and requantize), so there the rows
+#   whose int8 input the LayerNorm flipped are left out of the share: one
+#   such row is 1/512 of the outputs at level 2, more than ULP_SHARE.  The
+#   stage checks bound the flips (LN_FLIP_SHARE) and hold every later stage
+#   exactly.
 # - int8 stages: the quantized rows are the plain version's bit for bit
 #   without a LayerNorm; with one, no more than LN_FLIP_SHARE of them differ,
 #   by one level, and the row scales by SX_REL_TOL (a few f32 ulps).  Every
@@ -107,7 +108,10 @@ F32_REL_TOL = 1e-4
 #   f32, and so do the plain versions.  Each output is checked to hold bf16
 #   values and is held by the bf16 rules: exact without a prologue, "ulp"
 #   with one; the f32 int8-score attention (p not rounded on either side)
-#   by "ulp" too.
+#   by "ulp" too, and its output must be the bf16 rounding of a value within
+#   F32_REL_TOL x max |plain| of the plain version's unrounded f32 result:
+#   a kernel that rounded p to bf16 (about 1e-3 relative, below one bf16
+#   ulp) would pass "ulp" but not this.
 ULP_SHARE = 1e-3
 LN_FLIP_SHARE = 1e-4
 SX_REL_TOL = 1e-6
@@ -454,6 +458,24 @@ def compare_rows(site, xq, sx, want_xq, want_sx, ln: bool) -> str:
             f" rel {sx_rel:.2e}")
 
 
+def check_bf16_write(site, out, unrounded) -> str:
+    """``out``: an f32 output that holds bf16 values; ``unrounded``: the
+    plain version's f32 value before its bf16 write.  Each element of
+    ``out`` must be the bf16 rounding of a value within F32_REL_TOL x
+    max |unrounded| of ``unrounded``: equal to ``bf16(unrounded)`` except
+    near a rounding tie."""
+    out, u = out.float(), unrounded.float()
+    slack = F32_REL_TOL * u.abs().max().item()
+    ok = (out >= (u - slack).bfloat16().float()) \
+        & (out <= (u + slack).bfloat16().float())
+    ties = (out != u.bfloat16().float()).float().mean().item()
+    check(bool(ok.all()), f"{site}: {int((~ok).sum())} of {ok.numel()}"
+          " elements are no bf16 rounding of a value within"
+          f" {F32_REL_TOL} x max of the unrounded plain value")
+    return (f"bf16 write of the unrounded f32 value (tol {F32_REL_TOL} x"
+            f" {u.abs().max().item():.3e}): {ties:.2e} of elements at a tie")
+
+
 def flipped_rows(tk, x, xq, kw):
     """bool [rows]: the rows where the kernel's int8 input (xq [rows, K])
     differs from `quantize_rows` of the plain LayerNorm."""
@@ -648,7 +670,7 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
                               affine=b if mode == "affine" else 0, act=act)
         xq = tk.int8_matmul_stages(x, wq, ws, **kw)[1].reshape(-1, k)
         flipped = None
-        if mode == "ln":
+        if mode == "ln" and not bf16:
             flipped = flipped_rows(tk, x, xq, kw)
         table.measure(
             "int8_matmul" + sfx, site, f"x {[b, t, k]} {dt} N {n} {mode}",
@@ -671,7 +693,7 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
         args = (x, w1q, w1s, b1, w2q, w2s, b2)
         _, xq, _, _, hq, _ = tk.int8_ff_geglu_stages(*args, **kw)
         xq, hq = xq.reshape(-1, c), hq.reshape(-1, 4 * c)
-        flipped = flipped_rows(tk, x, xq, kw)
+        flipped = None if bf16 else flipped_rows(tk, x, xq, kw)
         table.measure(
             "int8_ff_geglu" + sfx, site,
             f"x {[b, t, c]} {dt} N {4 * c} O {c} ln res",
@@ -751,6 +773,10 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
                                               heads, d, act=act),
                       rule="rel" if bf16 else "ulp", bf16_values=not bf16,
                       others={("bf16" if bf16 else "f32") + "_kernel": exact})
+        if not bf16:
+            print(f"  {name + sfx} {site}: " + check_bf16_write(
+                site, run(), fa.int8_score_attention_f32(
+                    q, k, v, heads, shape[1])), flush=True)
         check_int8_score_stages(fa, site, q, k, stages)
 
 

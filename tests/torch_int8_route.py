@@ -12,7 +12,8 @@ on the port's side is patched.
 
 `round_cpu_route_writes` keeps the JAX package on its CPU route (W8A8 in
 f32) but rounds its int8 outputs to bf16 where the TPU route's kernels
-write them, so that the port can be held tightly against that route too.
+write them, and quantizes as those kernels do (``x * (1/sx)``), so that the
+port can be held tightly against that route too.
 
 ``force=True`` also routes every stride-1 pad-1 3x3 conv to the fused
 conv kernel and every attention to the flash kernels (``FLASH_MIN_Q_LEN``
@@ -79,12 +80,25 @@ def round_cpu_route_writes(monkeypatch) -> None:
     feed-forward's output after its residual add (the last `int8_matmul` /
     `int8_ff_geglu` of the sublayer, residual fused).  The FF's f32 hidden
     state (a biased call) stays f32, as in the kernel.  proj_in/proj_out
-    are not covered: the CPU-route tests do not run them."""
-    real = jax_quant.quant_dense_apply
+    are not covered: the CPU-route tests do not run them.
+
+    Its activation quantize multiplies by ``1/sx``, as the Pallas kernels
+    and the port do, where ``quant_dense_apply`` divides by ``sx``; the
+    dot and the dequant are ``quant_dense_apply``'s."""
 
     def dense(x, kernel, scale, bias, out_dtype):
-        y = real(x, kernel, scale, bias, out_dtype)
-        return y if bias is not None else _bf16(y)
+        xf = x.astype(jnp.float32)
+        amax = jnp.max(jnp.abs(xf), axis=-1, keepdims=True)
+        sx = jnp.maximum(amax, 1e-6) * (1.0 / 127.0)
+        xq = jnp.clip(jnp.round(xf * (1.0 / sx)), -127.0,
+                      127.0).astype(jnp.int8)
+        acc = jax.lax.dot_general(
+            xq, kernel, (((x.ndim - 1,), (0,)), ((), ())),
+            preferred_element_type=jnp.int32)
+        y = acc.astype(jnp.float32) * sx * scale
+        if bias is not None:
+            return (y + bias.astype(jnp.float32)).astype(out_dtype)
+        return _bf16(y.astype(out_dtype))
 
     attn, ff = jax_attention.Attention._quant_forward, \
         jax_unet.FeedForward.__call__
