@@ -1,5 +1,6 @@
 // The int8 tensor-core GEMM core shared by int8_matmul.cu (gemm_s8) and
-// int8_conv.cu (conv_s8), for Hopper (sm_90a).
+// int8_conv.cu (conv_s8), for Hopper (sm_90a); flash_attention_int8.cu
+// takes its primitives (cp_async16, ldmatrix_x4, mma_s8) for its score.
 //
 // - mma.sync m16n8k32 s8 x s8 -> s32 in inline PTX.  Both operands are
 //   k-contiguous (A [m, k] row, B [n, k] "col"), so plain ldmatrix (.x4, no

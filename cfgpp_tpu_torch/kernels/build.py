@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point, so it compiles in
-seconds without PyTorch's headers (``int8_matmul.cu`` and ``int8_conv.cu``
-share the GEMM core in ``csrc/int8_gemm.cuh``).  The shared library goes to
+seconds without PyTorch's headers (``int8_matmul.cu``, ``int8_conv.cu``
+and ``flash_attention_int8.cu`` share the int8 primitives in
+``csrc/int8_gemm.cuh``).  The shared library goes to
 ``build/cfgpp_tpu_torch/`` at the repository root (git-ignored), named by a
 hash of the source, the headers and the flags: an unchanged source is built
 once and then only loaded.  Nothing here runs at import time; the first CUDA call of a

@@ -17,9 +17,12 @@ bf16, or f32 for f32 inputs; the output rounded to bf16, the TPU kernels'
 output dtype, then held in ``out_dtype``), with the hand-written kernel in
 ``cfgpp_tpu_torch/csrc/flash_attention_int8.cu`` (both dtypes) and the plain
 versions `flash_attention_hd_int8_reference` /
-`flash_attention_qkv_packed_int8_reference`.  `int8_score_applies` says
-where the quantized UNet's self-attention takes them: exactly where the
-JAX package's TPU route runs ``_kernel_single_int8``.
+`flash_attention_qkv_packed_int8_reference`.  Like the JAX functions, they
+compute the int8 score only inside its domain (`int8_score_domain`: one kv
+block on the TPU) and the bf16 / f32 flash attention outside it, through
+`flash_attention_hd` / `flash_attention_qkv_packed` and their counters.
+`int8_score_applies` says where the quantized UNet's self-attention takes
+them: exactly where the JAX package's TPU route runs ``_kernel_single_int8``.
 
 ``launches``, ``packed_launches``, ``int8_launches`` and
 ``packed_int8_launches`` count the kernel launches of this process (bf16
@@ -242,7 +245,7 @@ def _packed_views_legal(num_heads: int, d: int) -> bool:
 def _single_pass_fits(nq: int, nkv_pad: int, d: int, hpb: int) -> bool:
     """The single-pass test of ``_pick_blocks``: the int8 score exists only
     in the one-kv-block kernel, which needs the whole sequence in one VMEM
-    block."""
+    block (a single pass always takes ``bkv == nkv_pad``)."""
     ld = hpb * d
 
     def vmem(bq, bkv):
@@ -259,18 +262,36 @@ def _single_pass_fits(nq: int, nkv_pad: int, d: int, hpb: int) -> bool:
     return vmem(bq, nkv_pad) <= _VMEM_BUDGET
 
 
+def int8_score_domain(nq: int, nkv: int, num_heads: int, d: int,
+                      packed: bool) -> bool:
+    """Whether the JAX int8-score function runs ``_kernel_single_int8`` on
+    nq query rows and nkv kv rows (k's rows, padded or not), ``num_heads``
+    heads of dim d, rather than the bf16 flash attention.
+    ``flash_attention_hd_int8``: one kv block (``_pick_blocks`` single pass
+    at the kv rows padded to 128).  ``flash_attention_qkv_packed_int8``
+    (``packed``, nq == nkv): the same plus ``n % 128 == 0`` where it reads
+    the pack in place; where it may not (`_packed_views_legal`), it splits
+    the pack and takes the hd rule."""
+    hpb = _heads_per_block(num_heads, d)
+    if not _single_pass_fits(nq, -(-nkv // 128) * 128, d, hpb):
+        return False
+    return not (packed and _packed_views_legal(num_heads, d)) or nq % 128 == 0
+
+
 def int8_score_applies(n: int, num_heads: int, d: int) -> bool:
     """True exactly where the JAX package's TPU route runs the quantized
     UNet's self-attention (n tokens, ``num_heads`` heads of dim d) through
     ``_kernel_single_int8``: the flash path (n >= `FLASH_MIN_Q_LEN`, d a
-    multiple of 8), one kv block, and on the in-place packed route
-    ``n % 128 == 0``.  Elsewhere it runs the bf16 kernel."""
+    multiple of 8) and `int8_score_domain` of the packed entry point.
+    Elsewhere it runs the bf16 kernel."""
     if n < FLASH_MIN_Q_LEN or d % 8:
         return False
-    if not _single_pass_fits(n, -(-n // 128) * 128, d,
-                             _heads_per_block(num_heads, d)):
-        return False
-    return not _packed_views_legal(num_heads, d) or n % 128 == 0
+    return int8_score_domain(n, n, num_heads, d, packed=True)
+
+
+def _int8_domain_of(q, k, num_heads: int, packed: bool) -> bool:
+    return int8_score_domain(q.shape[1], k.shape[1], num_heads,
+                             q.shape[2] // num_heads, packed)
 
 
 def quantize_qk_reference(q: torch.Tensor, k: torch.Tensor, num_heads: int):
@@ -295,21 +316,24 @@ def flash_attention_hd_int8_reference(q: torch.Tensor, k: torch.Tensor,
                                       kv_len: Optional[int] = None,
                                       out_dtype: Optional[torch.dtype] = None
                                       ) -> torch.Tensor:
-    """Plain PyTorch version of `flash_attention_hd_int8`:
-    `int8_score_attention_f32` rounded to bf16 as the TPU kernel writes it.
+    """Plain PyTorch version of `flash_attention_hd_int8`: inside
+    `int8_score_domain`, `int8_score_attention_f32` rounded to bf16 as the
+    TPU kernel writes it; outside it `flash_attention_hd_reference`.
     Returns ``out_dtype`` (default: q's dtype)."""
     n = _check_shapes(q, k, v, num_heads, kv_len)
+    if not _int8_domain_of(q, k, num_heads, packed=False):
+        return flash_attention_hd_reference(q, k, v, num_heads, kv_len).to(
+            out_dtype or q.dtype)
     return int8_score_attention_f32(q, k, v, num_heads, n).bfloat16().to(
         out_dtype or q.dtype)
 
 
-def int8_score_attention_f32(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, num_heads: int,
-                             n: int) -> torch.Tensor:
-    """The int8-score attention's f32 result before its bf16 write: exact
-    int q k^T (f64), ``s = acc * (sq * (sk * q_scale))``, kv rows at or past
-    ``n`` masked, ``p = exp2(s)`` in v's dtype, ``(p@v) / max(sum p,
-    1e-37)``."""
+def int8_score_probs(q: torch.Tensor, k: torch.Tensor, num_heads: int,
+                     n: int, dtype: torch.dtype) -> torch.Tensor:
+    """p [B, H, Nq, Nkv] (f32) of the int8-score attention: exact int q k^T
+    (f64), ``s = acc * (sq * (sk * q_scale))``, kv rows at or past ``n``
+    masked, ``p = exp2(s)`` with no max subtracted (the TPU kernel's
+    one-block softmax), rounded to ``dtype`` (v's)."""
     b, nq, hd = q.shape
     nkv, d = k.shape[1], hd // num_heads
     qq, sq, kq, sk = quantize_qk_reference(q, k, num_heads)
@@ -320,7 +344,17 @@ def int8_score_attention_f32(q: torch.Tensor, k: torch.Tensor,
     fac = sq.transpose(1, 2)[..., None] * (sk * q_scale)[:, :, None, None]
     s = acc * fac
     s[..., n:] = float("-inf")
-    p = torch.exp2(s).to(v.dtype).float()
+    return torch.exp2(s).to(dtype).float()
+
+
+def int8_score_attention_f32(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, num_heads: int,
+                             n: int) -> torch.Tensor:
+    """The int8-score attention's f32 result before its bf16 write:
+    `int8_score_probs` p, ``(p@v) / max(sum p, 1e-37)``."""
+    b, nq, hd = q.shape
+    nkv, d = k.shape[1], hd // num_heads
+    p = int8_score_probs(q, k, num_heads, n, v.dtype)
     vh = v.float().reshape(b, nkv, num_heads, d).transpose(1, 2)
     out = (p @ vh) / p.sum(-1, keepdim=True).clamp_min(1e-37)
     return out.transpose(1, 2).reshape(b, nq, hd)
@@ -329,11 +363,15 @@ def int8_score_attention_f32(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_qkv_packed_int8_reference(
         qkv: torch.Tensor, num_heads: int,
         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain PyTorch version of `flash_attention_qkv_packed_int8`."""
+    """Plain PyTorch version of `flash_attention_qkv_packed_int8`: outside
+    `int8_score_domain`, `flash_attention_qkv_packed_reference`."""
     hd = _check_packed(qkv, num_heads)
     q, k, v = qkv.split(hd, dim=2)
-    return flash_attention_hd_int8_reference(q, k, v, num_heads,
-                                             out_dtype=out_dtype)
+    if not _int8_domain_of(q, k, num_heads, packed=True):
+        return flash_attention_qkv_packed_reference(qkv, num_heads).to(
+            out_dtype or qkv.dtype)
+    return int8_score_attention_f32(q, k, v, num_heads, k.shape[1]).bfloat16(
+        ).to(out_dtype or qkv.dtype)
 
 
 @functools.cache
@@ -351,11 +389,26 @@ def _lib_int8():
     return lib
 
 
+def _int8_scratch_bytes(b: int, nkv: int, num_heads: int, d: int) -> int:
+    """The kernel's scratch (``csrc/flash_attention_int8.cu``, the layout
+    note above ``launch``): the k amax, 4 bytes per (batch, head), then from
+    the next multiple of 128 bytes int8 k [B*H, Nkv rounded up to 64, d
+    rounded up to 32]."""
+    bh = b * num_heads
+    return (-(-4 * bh // 128) * 128
+            + bh * (-(-nkv // 64) * 64) * (-(-d // 32) * 32))
+
+
 def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
     """Launch the int8-score kernel on (q, k, v) or on a packed ``qkv``;
     returns (out, qq, sq, kq, sk), the stage outputs None unless
     ``stages``.  kq rows at or past n are not read by the kernel: zero."""
     x = q if qkv is None else qkv
+    if not _int8_domain_of(q, k, num_heads, packed=qkv is not None):
+        raise ValueError(
+            f"int8-score attention: q {tuple(q.shape)}, kv {tuple(k.shape)}, "
+            f"heads {num_heads} lie outside the int8 score's domain "
+            "(int8_score_domain): the JAX function runs the bf16 kernel there")
     if x.device.type != "cuda":
         raise ValueError(f"int8-score attention: no kernel for {x.device}")
     b, nq, hd = q.shape
@@ -367,7 +420,8 @@ def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
                          f"{INT8_HEAD_DIMS}")
     dev, suffix = x.device, _KERNEL_DTYPES[x.dtype]
     out = torch.empty((b, nq, hd), dtype=x.dtype, device=dev)
-    kamax = torch.empty((b * num_heads,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((_int8_scratch_bytes(b, nkv, num_heads, d),),
+                          dtype=torch.uint8, device=dev)
     st = [None] * 4
     if stages:
         st = [torch.empty((b, nq, hd), dtype=torch.int8, device=dev),
@@ -383,11 +437,11 @@ def _launch_int8(q, k, v, qkv, num_heads: int, n: int, stages: bool):
         if qkv is None:
             err = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                kamax.data_ptr(), *ptrs, b, nq, nkv, num_heads, d, n,
+                scratch.data_ptr(), *ptrs, b, nq, nkv, num_heads, d, n,
                 q_scale, stream)
         else:
             err = fn(
-                qkv.data_ptr(), out.data_ptr(), kamax.data_ptr(), *ptrs, b,
+                qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), *ptrs, b,
                 nq, num_heads, d, q_scale, stream)
     if err:
         shapes = ", ".join(f"{name} {tuple(t.shape)}"
@@ -417,12 +471,15 @@ def flash_attention_hd_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Nq, H*D], non-causal, kv rows at or past ``kv_len`` masked (the k
     scale still covers every row, as the TPU kernel's).  CUDA tensors must be
     all bf16 or all f32 with D in `INT8_HEAD_DIMS`; the output has their
-    dtype there."""
+    dtype there.  Outside `int8_score_domain` it is `flash_attention_hd`,
+    as the JAX function falls back to the bf16 kernel."""
     n = _check_shapes(q, k, v, num_heads, kv_len)
     if q.device.type == "cpu":
         return flash_attention_hd_int8_reference(q, k, v, num_heads, kv_len,
                                                  out_dtype)
     _check_int8_out(out_dtype, q)
+    if not _int8_domain_of(q, k, num_heads, packed=False):
+        return flash_attention_hd(q, k, v, num_heads, kv_len)
     return _launch_int8(q, k, v, None, num_heads, n, stages=False)[0]
 
 
@@ -430,13 +487,17 @@ def flash_attention_qkv_packed_int8(qkv: torch.Tensor, num_heads: int,
                                     out_dtype: Optional[torch.dtype] = None
                                     ) -> torch.Tensor:
     """Int8-score self-attention on a packed [B, N, 3*H*D] projection ->
-    [B, N, H*D]; q, k and v are read in place as channel-offset views."""
+    [B, N, H*D]; q, k and v are read in place as channel-offset views.
+    Outside `int8_score_domain` it is `flash_attention_qkv_packed`, as the
+    JAX function falls back to the bf16 kernel."""
     hd = _check_packed(qkv, num_heads)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_packed_int8_reference(qkv, num_heads,
                                                          out_dtype)
     _check_int8_out(out_dtype, qkv)
     q, k, v = qkv.split(hd, dim=2)
+    if not _int8_domain_of(q, k, num_heads, packed=True):
+        return flash_attention_qkv_packed(qkv, num_heads)
     return _launch_int8(q, k, v, qkv, num_heads, qkv.shape[1],
                         stages=False)[0]
 
@@ -448,7 +509,8 @@ def flash_attention_hd_int8_stages(q: torch.Tensor, k: torch.Tensor,
     sq, kq, sk)``: the output and what the kernel quantized (int8 q [B, Nq,
     H*D], f32 q scales [B, Nq, H], int8 k [B, Nkv, H*D] with rows at or past
     ``kv_len`` zero, f32 k scales [B, H]), which checks hold against
-    `quantize_qk_reference`."""
+    `quantize_qk_reference`.  Raises outside `int8_score_domain`, where no
+    int8 stage exists."""
     n = _check_shapes(q, k, v, num_heads, kv_len)
     return _launch_int8(q, k, v, None, num_heads, n, stages=True)
 

@@ -1,17 +1,18 @@
-"""A/B of builds of the port's int8 GEMM or int8 conv library on one GPU.
+"""A/B of builds of the port's int8 GEMM, int8 conv or int8-score attention
+library on one GPU.
 
     python3 -m cfgpp_tpu_torch.tools.int8_ab --baseline OLD/int8_matmul.cu \
-        [--library int8_conv] [--variant NAME=OTHER.cu ...] [--rounds 2] \
-        [--pairs 1] [--out FILE.json]
+        [--library int8_conv|flash_attention_int8] [--variant NAME=OTHER.cu \
+        ...] [--rounds 2] [--pairs 1] [--out FILE.json]
 
 Run from the repository root on a machine with an NVIDIA GPU, nvcc and
 PyTorch for CUDA.  ``--baseline`` (e.g. the parent commit's source, from
 ``git show``) and each ``--variant`` are other versions of
-``cfgpp_tpu_torch/csrc/<library>.cu`` (``int8_matmul``, the default, or
-``int8_conv``) with the same C entry points; ``csrc/`` is on their include
-path, so they may include its headers.  All are built with the port's nvcc
-flags and swapped under the same wrappers, so everything else in the
-process is the same.  For ``int8_matmul``, in order:
+``cfgpp_tpu_torch/csrc/<library>.cu`` (``int8_matmul``, the default,
+``int8_conv`` or ``flash_attention_int8``) with the same C entry points;
+``csrc/`` is on their include path, so they may include its headers.  All
+are built with the port's nvcc flags and swapped under the same wrappers,
+so everything else in the process is the same.  For ``int8_matmul``, in order:
 
 1. per shape of ``chip_smoke.py``'s ``INT8_MATMUL_CASES`` and
    ``INT8_FF_CASES``: each build against the plain version (chip_smoke's
@@ -43,6 +44,20 @@ For ``int8_conv``:
 2. ``--quant all`` requests as above, the baseline and this build in turns,
    then one profiled request of each (device time, the conv kernels' share,
    busy share).
+
+For ``flash_attention_int8``:
+
+1. per case of ``chip_smoke.py``'s ``INT8_ATTENTION_CASES``, in bf16 and in
+   f32: each build against the plain version (every build within
+   chip_smoke's floor of ``KERNEL_REL_TOL`` x max; this build also by its
+   rule, one bf16 ulp of the plain value; a failure stops the run, and each
+   build's share beyond one ulp is printed), its time per call in turns
+   (``--pairs`` times), one profiled window of calls per build (device time
+   per call, total and by kernel name), and as yardsticks only, on the same
+   inputs, the flash-attention kernel of the inputs' dtype (a bf16 or f32
+   score: not the same function) and ``scaled_dot_product_attention``, and
+   the bound (``utils/roofline.py``); per-request sums;
+2. ``--quant all`` requests as for ``int8_conv``.
 
 Prints a line per measurement with the card's name and power limit, and
 one JSON object as the last line (also written to ``--out``).
@@ -90,7 +105,12 @@ def parent_dequant_conv(self, x, gn_scale, gn_bias, residual):
 # Kernel names of each library in a profiler trace (device time by name).
 PROFILED = {"int8_matmul": ("gemm_s8", "quantize_rows"),
             "int8_conv": ("conv3x3_s8", "conv_s8", "quantize_windows",
-                          "window_amax")}
+                          "window_amax"),
+            "flash_attention_int8": ("flash_fwd_s8", "quantize_k",
+                                     "k_absmax")}
+# The wrapper module's attribute that returns each library.
+LIBRARY_ATTR = {"int8_matmul": "_lib", "int8_conv": "_lib",
+                "flash_attention_int8": "_lib_int8"}
 
 
 def build(cs, src: Path, out: Path, library: str) -> ctypes.CDLL:
@@ -107,6 +127,14 @@ def build(cs, src: Path, out: Path, library: str) -> ctypes.CDLL:
     print(f"  built {src} -> {out.name}: {'; '.join(usage)}", flush=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
+    if library == "flash_attention_int8":
+        for sfx in ("", "_f32"):
+            hd = getattr(lib, f"cfgpp_flash_attention_hd_int8{sfx}")
+            packed = getattr(lib, f"cfgpp_flash_attention_qkv_packed_int8{sfx}")
+            hd.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, p]
+            packed.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float, p]
+            hd.restype = packed.restype = i
+        return lib
     if library == "int8_conv":
         for fn in (lib.cfgpp_int8_conv3x3, lib.cfgpp_int8_conv3x3_f32):
             fn.argtypes = [p] * 11 + [i] * 6 + [p]
@@ -354,19 +382,105 @@ def conv_shapes(cs, tc, rl, libs, card) -> list:
     return rows
 
 
-def requests(cs, tk, tc, libs, card, rounds, library) -> dict:
+def attention_shapes(cs, fa, rl, libs, card, pairs) -> list:
+    """Per INT8_ATTENTION_CASES case, bf16 then f32: every build against the
+    plain version, times in turns, a profiled window per build, the flash
+    kernel of the inputs' dtype, SDPA and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    setups = {name: (lambda lib=lib: setattr(fa, "_lib_int8", lambda: lib))
+              for name, lib in libs.items()}
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for site, shape, heads, packed, calls in cs.INT8_ATTENTION_CASES:
+            b, n, c = shape
+            if packed:
+                qkv = torch.randn(shape, generator=gen, device="cuda").to(dt)
+                q, k, v = qkv.split(c // 3, dim=2)
+                run = lambda qkv=qkv: fa.flash_attention_qkv_packed_int8(  # noqa: E731
+                    qkv, heads)
+                flash = lambda qkv=qkv: fa.flash_attention_qkv_packed(  # noqa: E731
+                    qkv, heads)
+            else:
+                q, k, v = (torch.randn(shape, generator=gen,
+                                       device="cuda").to(dt) for _ in range(3))
+                run = lambda q=q, k=k, v=v: fa.flash_attention_hd_int8(  # noqa: E731
+                    q, k, v, heads)
+                flash = lambda q=q, k=k, v=v: fa.flash_attention_hd(  # noqa: E731
+                    q, k, v, heads)
+            d = q.shape[2] // heads
+            unrounded = fa.int8_score_attention_f32(q, k, v, heads, n)
+            want = unrounded.bfloat16().float()
+            scale = want.abs().max().item()
+            errs, kernels = {}, {}
+            for name in libs:
+                setups[name]()
+                out = run()
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs().max().item()
+                off = cs.beyond_one_ulp(out, want)
+                cs.check(bool(torch.isfinite(out).all())
+                         and err <= cs.KERNEL_REL_TOL * scale,
+                         f"{name} build disagrees with the plain version at"
+                         f" int8-score attention {site} {dt}: max err"
+                         f" {err:.3e}")
+                if name == "change":
+                    cs.check(off <= cs.ULP_SHARE,
+                             f"int8-score attention {site} {dt}: {off:.2e} of"
+                             " the elements beyond one bf16 ulp")
+                    cs.check_bf16_write(site, out, unrounded)
+                errs[name] = {"max_abs_err": err, "beyond_one_ulp": off}
+                prof = device_times(lambda: [run() for _ in range(10)],
+                                    PROFILED["flash_attention_int8"])
+                kernels[name] = {k[:-2]: v * 1e3 / 10 for k, v in prof.items()
+                                 if k.endswith("_s") and v}
+            ms = turns(setups, lambda: cs.time_ms(run), pairs)
+            mean = {name: statistics.mean(v) for name, v in ms.items()}
+            qh, kh, vh = (cs.sdpa_heads(x, heads, n) for x in (q, k, v))
+            row = {"kernel": "flash_attention_" + (
+                       "qkv_packed_int8" if packed else "hd_int8"),
+                   "site": site, "dtype": str(dt), "calls_per_request": calls,
+                   "max_abs_err": errs, "ms": ms, "ms_mean": mean,
+                   "device_ms_by_kernel": kernels,
+                   "flash_kernel_ms": cs.time_ms(flash),
+                   "sdpa_ms": cs.time_ms(
+                       lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+                   "bound_ms": rl.flash_attention_int8(
+                       b, n, n, heads, d,
+                       act=rl.BF16 if dt == torch.bfloat16 else rl.F32
+                   ).bound_ms()}
+            rows.append(row)
+            shown = " ".join(f"{name} {v:.4f}" for name, v in mean.items())
+            split = "; ".join(
+                f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in ks.items())
+                for name, ks in kernels.items())
+            print(f"  {row['kernel']} {site} {dt}: ms {shown}; errors {errs};"
+                  f" {'bf16' if dt == torch.bfloat16 else 'f32'} flash kernel"
+                  f" {row['flash_kernel_ms']:.4f}; sdpa {row['sdpa_ms']:.4f};"
+                  f" bound {row['bound_ms']:.4f}; profiled ms per call by"
+                  f" kernel: {split} [{card}]", flush=True)
+    for dt in ("torch.bfloat16", "torch.float32"):
+        sums = {name: sum(r["calls_per_request"] * r["ms_mean"][name]
+                          for r in rows if r["dtype"] == dt)
+                for name in libs}
+        print(f"  int8-score attention {dt} per request (calls x mean ms): "
+              + " ".join(f"{name} {v:.3f}" for name, v in sums.items())
+              + f" [{card}]", flush=True)
+    return rows
+
+
+def requests(cs, tk, tc, libs, card, rounds, library, fa=None) -> dict:
     from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
     from cfgpp_tpu_torch.models import quant
 
     bundle = ModelBundle.random_init("sd15", seed=0, dtype=torch.bfloat16,
                                      device="cuda")
     state = ExitStack()
-    mod = tc if library == "int8_conv" else tk
+    mod = {"int8_conv": tc, "flash_attention_int8": fa}.get(library, tk)
 
     def setup(lib, bf16_conv=False, tf32=False):
         def go():
             state.close()
-            mod._lib = lambda: lib
+            setattr(mod, LIBRARY_ATTR[library], lambda: lib)
             torch.backends.cudnn.allow_tf32 = tf32
             if bf16_conv:
                 state.enter_context(mock.patch.object(
@@ -382,7 +496,7 @@ def requests(cs, tk, tc, libs, card, rounds, library) -> dict:
             "gemm, f32 conv, tf32 off": setup(change),
             "gemm, f32 conv, tf32 on": setup(change, tf32=True)}),
     }
-    if library == "int8_conv":
+    if library != "int8_matmul":
         paths = {"all": ("all", {"baseline": setup(base),
                                  "change": setup(change)})}
     out = {}
@@ -437,7 +551,8 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=2,
                     help="rounds of requests; 0: per-shape times only")
     ap.add_argument("--pairs", type=int, default=1,
-                    help="int8_matmul: rounds of per-shape turns")
+                    help="int8_matmul, flash_attention_int8: rounds of"
+                         " per-shape turns")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -446,6 +561,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from cfgpp_tpu_torch.kernels import build as kb
+    from cfgpp_tpu_torch.kernels import flash_attention as fa
     from cfgpp_tpu_torch.kernels import int8_conv as tc
     from cfgpp_tpu_torch.kernels import int8_matmul as tk
     from cfgpp_tpu_torch.utils import roofline as rl
@@ -466,12 +582,16 @@ def main() -> None:
                                   args.library)
                 for i, (name, src) in enumerate(srcs.items())}
         libs = {name: f.result() for name, f in futs.items()}
-    rows = (conv_shapes(cs, tc, rl, libs, card) if args.library == "int8_conv"
-            else shapes(cs, tk, libs, card, args.pairs))
+    if args.library == "int8_conv":
+        rows = conv_shapes(cs, tc, rl, libs, card)
+    elif args.library == "flash_attention_int8":
+        rows = attention_shapes(cs, fa, rl, libs, card, args.pairs)
+    else:
+        rows = shapes(cs, tk, libs, card, args.pairs)
     result = {"card": card, "library": args.library, "shapes": rows}
     if args.rounds:
         result["requests"] = requests(cs, tk, tc, libs, card, args.rounds,
-                                      args.library)
+                                      args.library, fa)
     line = json.dumps(result)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -112,6 +112,11 @@ F32_REL_TOL = 1e-4
 #   F32_REL_TOL x max |plain| of the plain version's unrounded f32 result:
 #   a kernel that rounded p to bf16 (about 1e-3 relative, below one bf16
 #   ulp) would pass "ulp" but not this.
+# - bf16 int8-score attention: the kernel computes p max-free with the plain
+#   version's steps, so p is bit-equal on both sides and only the f32 order
+#   of sum p and p@v differs; it is held by the same two rules as the f32
+#   rows ("ulp", and each output the bf16 rounding of a value within
+#   F32_REL_TOL x max of the unrounded plain value).
 ULP_SHARE = 1e-3
 LN_FLIP_SHARE = 1e-4
 SX_REL_TOL = 1e-6
@@ -738,10 +743,9 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
                 xc, wf, padding=1)} if bf16 else None)
         check_conv_stages(tc, site, x, wq, ws, kw)
 
-    # The int8-score attention: bf16 is held to KERNEL_REL_TOL (p rounded to
-    # bf16 on both sides, in another order), f32 by "ulp" (p not rounded,
-    # the output rounded to bf16 on both sides); the plain version's output
-    # in f32 is the reference for both.
+    # The int8-score attention, bf16 and f32, by "ulp" and as a bf16 write of
+    # the plain version's unrounded f32 value (p bit-equal on both sides,
+    # rounded to bf16 or not; the output rounded to bf16 on both sides).
     for site, shape, heads, packed, calls in INT8_ATTENTION_CASES:
         if packed:
             qkv = randn(*shape).to(dt)
@@ -771,13 +775,55 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
                       plain, calls,
                       rl.flash_attention_int8(shape[0], shape[1], shape[1],
                                               heads, d, act=act),
-                      rule="rel" if bf16 else "ulp", bf16_values=not bf16,
+                      rule="ulp", bf16_values=not bf16,
                       others={("bf16" if bf16 else "f32") + "_kernel": exact})
-        if not bf16:
-            print(f"  {name + sfx} {site}: " + check_bf16_write(
-                site, run(), fa.int8_score_attention_f32(
-                    q, k, v, heads, shape[1])), flush=True)
+        print(f"  {name + sfx} {site}: " + check_bf16_write(
+            site, run(), fa.int8_score_attention_f32(
+                q, k, v, heads, shape[1])), flush=True)
         check_int8_score_stages(fa, site, q, k, stages)
+    check_int8_score_domain(fa, randn, dt)
+
+
+# Outside the int8 score's domain the JAX int8-score functions run the bf16
+# kernel, and so do the port's: the packed entry point at a token count that
+# is no multiple of 128, the unpacked one at more kv rows than one TPU block
+# holds.
+# (site, q or packed qkv shape, kv rows of the unpacked entry point, heads)
+INT8_DOMAIN_EDGE_CASES = [
+    ("packed, 1000 tokens", (2, 1000, 3 * 640), None, 8),
+    ("hd, 4200 kv rows", (2, 256, 320), 4200, 8),
+]
+
+
+def check_int8_score_domain(fa, randn, dt) -> None:
+    """Each case equals the flash-attention kernel's output exactly, and
+    only the flash-attention counters move."""
+    for site, shape, nkv, heads in INT8_DOMAIN_EDGE_CASES:
+        if nkv is None:
+            qkv = randn(*shape).to(dt)
+            run = lambda: fa.flash_attention_qkv_packed_int8(qkv, heads)  # noqa: E731
+            want = fa.flash_attention_qkv_packed(qkv, heads)
+            moved = "packed_launches"
+        else:
+            b, n, c = shape
+            q, k, v = (randn(b, rows, c).to(dt) for rows in (n, nkv, nkv))
+            run = lambda: fa.flash_attention_hd_int8(q, k, v, heads)  # noqa: E731
+            want = fa.flash_attention_hd(q, k, v, heads)
+            moved = "launches"
+        names = ("launches", "packed_launches", "int8_launches",
+                 "packed_int8_launches")
+        before = {n: getattr(fa, n) for n in names}
+        out = run()
+        torch.cuda.synchronize()
+        delta = {n: getattr(fa, n) - before[n] for n in names}
+        same = torch.equal(out, want)
+        print(f"  int8-score attention outside its domain, {site} {dt}: equal"
+              f" to the flash kernel {same} (tol: exact); launches {delta}",
+              flush=True)
+        check(same, f"int8-score attention {site} {dt}: differs from the"
+              " flash kernel outside the int8 domain")
+        check(delta == {n: int(n == moved) for n in names},
+              f"int8-score attention {site} {dt}: launches {delta}")
 
 
 def unet_inputs(engine):
