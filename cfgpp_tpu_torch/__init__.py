@@ -2,8 +2,8 @@
 
 Module paths mirror ``cfgpp_tpu/``, whose JAX code is the reference each
 module is tested against.  The port imports torch and never jax, and
-nothing of the JAX package: ``configs``, ``schedules.ddim`` and
-``weights.tokenizer`` are copies, held equal to the JAX package's by
+nothing of the JAX package: ``configs``, ``schedules.ddim``,
+``schedules.karras`` and ``weights.tokenizer`` are copies, held equal to the JAX package's by
 ``tests/test_torch_port_copies.py``.
 
 Layer map (bottom-up):
@@ -14,12 +14,12 @@ Layer map (bottom-up):
   models/     CLIP text encoder, UNet2DCondition (SD-1.5 layout), VAE
   weights/    JAX parameter trees -> the port's state dicts; the CLIP
               tokenizer (copy)
-  schedules/  DDIM noise-schedule tables (copy)
-  solvers/    DDIM / DDIM-CFG++ plans, steps and the sampling loop
+  schedules/  DDIM noise-schedule tables and Karras sigmas (copies)
+  solvers/    the SD solvers' plans, steps, sampling and inversion loops
   engine/     ModelBundle + DiffusionEngine (tokenize -> encode -> solve ->
               decode)
-  utils/      image output; roofline bounds of the kernels' work
-  cli/        text_to_img
+  utils/      PNG output and input; roofline bounds of the kernels' work
+  cli/        text_to_img, inversion
 """
 
 __version__ = "0.1.0"

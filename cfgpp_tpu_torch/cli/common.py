@@ -11,6 +11,7 @@ import argparse
 import torch
 
 from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+from cfgpp_tpu_torch.solvers.registry import list_solvers
 
 MODELS = ("sd15", "tiny_sd")
 
@@ -27,7 +28,8 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
     parser.add_argument("--null_prompt", type=str, default=DEFAULT_NULL_PROMPT)
     parser.add_argument("--prompt", type=str, default="")
     parser.add_argument("--cfg_guidance", type=float, default=7.5)
-    parser.add_argument("--method", type=str, default=default_method)
+    parser.add_argument("--method", type=str, default=default_method,
+                        choices=list_solvers("sd"))
     parser.add_argument("--model", type=str, default="sd15", choices=MODELS)
     parser.add_argument("--NFE", type=int, default=default_nfe)
     parser.add_argument("--seed", type=int, default=42)

@@ -4,7 +4,8 @@
 One request: tokenize (host) -> CLIP text encode -> the solver loop, with
 cond and uncond fused into one batch-2B UNet call and the cross-attention
 k/v hoisted out of the loop -> per-image VAE decode -> float32 NHWC images
-in [0, 1].  PyTorch runs eagerly, so there is no compile cache: the JAX
+in [0, 1].  Inversion and edit solvers start the loop from a zT that a DDIM
+inversion loop makes from the VAE-encoded source image.  PyTorch runs eagerly, so there is no compile cache: the JAX
 engine's jit per (solver, NFE, resolution, batch, guidance mode) becomes a
 plain call.
 """
@@ -19,8 +20,17 @@ import torch
 from cfgpp_tpu_torch.schedules.ddim import make_ddim_schedule
 from cfgpp_tpu_torch.engine.bundle import ModelBundle
 from cfgpp_tpu_torch.models.unet import precompute_cross_kv
+from cfgpp_tpu_torch.solvers.plans import plan_ddim_inversion
 from cfgpp_tpu_torch.solvers.registry import get_solver_spec
-from cfgpp_tpu_torch.solvers.sampler import init_latent, run_solver
+from cfgpp_tpu_torch.solvers.sampler import (init_latent, run_inversion,
+                                             run_solver)
+
+
+def _stream_seed(seed: int, *tags: int) -> int:
+    """The seed of one random stream of a request (tags: 1 = the ancestral
+    noise of a step, 2 = the encode draw), derived from the request's."""
+    words = np.random.SeedSequence([seed % 2**64, *tags]).generate_state(2)
+    return int(words[0]) << 31 | int(words[1]) >> 1
 
 
 def _needs_branches(cfgpp: bool, w: float) -> Tuple[bool, bool]:
@@ -45,6 +55,7 @@ class DiffusionEngine:
         self.schedule = make_ddim_schedule(
             nfe, timestep_spacing=self.spec.timestep_spacing)
         self.plan = self.spec.plan_fn(self.schedule)
+        self.inv_plan = plan_ddim_inversion(self.schedule)
 
     @property
     def device(self) -> torch.device:
@@ -102,11 +113,28 @@ class DiffusionEngine:
         imgs = [self.bundle.vae.decode(zi[None] / scale) for zi in z]
         return (torch.cat(imgs).float() / 2.0 + 0.5).clamp(0.0, 1.0)
 
+    def _encode(self, img: torch.Tensor, generator: torch.Generator
+                ) -> torch.Tensor:
+        """VAE encode (f32 compute: it feeds the inversion's source latent)
+        and the reparameterized draw from ``generator``, times the VAE's
+        scaling factor."""
+        scale = self.bundle.config.vae.scaling_factor
+        mean, logvar = self.bundle.vae.encode(img)
+        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                            device=mean.device)
+        return (mean + torch.exp(0.5 * logvar) * noise) * scale
+
     @staticmethod
     def _to_uint8(img: torch.Tensor) -> torch.Tensor:
         return (img * 255.0 + 0.5).to(torch.uint8)
 
     # ---------------------------------------------------------------- sample
+    def _as_f32(self, x) -> torch.Tensor:
+        """An array-like or tensor -> an f32 tensor on the bundle's device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
     @torch.inference_mode()
     def sample(
         self,
@@ -114,35 +142,105 @@ class DiffusionEngine:
         cfg_guidance: float = 7.5,
         seed: int = 42,
         resolution: Optional[int] = None,
+        src_img=None,
         init_latent_override=None,
         return_trajectory: bool = False,
+        latent_init: Optional[str] = None,
+        src_latent_override=None,
+        noise_override=None,
     ):
-        """Generate images.  ``prompt`` is [null, cond]; cond may be a list
-        of B strings, run as one batch.  Returns float32 NHWC images in
-        [0, 1] on the bundle's device, and with ``return_trajectory`` also
-        the per-step (z0t, zt), each stacked to [NFE, B, h, w, 4].
+        """Generate images.  ``prompt`` is [null, cond], or [null, src, tgt]
+        for edit solvers; each conditional entry may be a list of B strings,
+        run as one batch.  Returns float32 NHWC images in [0, 1] on the
+        bundle's device, and with ``return_trajectory`` also the per-step
+        (z0t, zt), each stacked to [n_steps, B, h, w, 4].
 
-        ``init_latent_override``: the exact zT to start from (array-like
-        [B, h, w, 4]); otherwise zT is drawn from a generator seeded with
-        ``seed`` on the device (its numbers differ from jax.random's)."""
-        null_p, cond = prompt[0], prompt[1]
-        conds = list(cond) if isinstance(cond, (list, tuple)) else [cond]
-        batch = len(conds)
+        Inversion solvers need ``src_img`` ([B, H, W, 3] in [-1, 1]): it is
+        VAE-encoded, inverted to zT with the source prompt and resampled
+        with the (target) prompt.  ``latent_init``: "ddim" (the default:
+        invert with the null prompt) or "npi" (negative-prompt inversion,
+        latent_diffusion.py:195-197: the source prompt serves as the null
+        prompt at w=1, a single-branch forward).
+
+        zT, the ancestral solvers' per-step noise and the encode draw come
+        from three generators on the device derived from ``seed`` (their
+        numbers differ from jax.random's).  Parity hooks replace them:
+        ``init_latent_override`` (zT, [B, h, w, 4]), ``noise_override`` (the
+        per-step noise, [n_steps, B, h, w, 4]) and ``src_latent_override``
+        (the encoded source latent, [B, h, w, 4])."""
+        if latent_init not in (None, "ddim", "npi"):
+            raise ValueError(f"unknown latent_init {latent_init!r}")
+        if latent_init == "npi" and not self.spec.inversion:
+            raise ValueError("latent_init='npi' requires an inversion solver")
+        conds = prompt[1:3] if self.spec.edit else prompt[1:2]
+        batch = max(len(p) if isinstance(p, (list, tuple)) else 1
+                    for p in conds)
+        slots = [list(p) if isinstance(p, (list, tuple)) else [p] * batch
+                 for p in conds]
+        if any(len(s) != batch for s in slots):
+            raise ValueError("prompt lists must share one batch size")
+        src = None
+        if self.spec.inversion:
+            if src_img is None:
+                raise ValueError(f"solver {self.solver_name} needs src_imgs")
+            src = self._as_f32(src_img)
+            if src.shape[0] != batch:
+                raise ValueError(f"{src.shape[0]} src imgs vs batch {batch}")
         res = resolution or self.default_resolution()
 
-        uc = self._text_embed_sd(self.tokenize([null_p] * batch))
-        c = self._text_embed_sd(self.tokenize(conds))
-        eps_fn = self._make_eps_fn(uc, c, cfg_guidance)
+        uc = self._text_embed_sd(self.tokenize([prompt[0]] * batch))
+        cs = [self._text_embed_sd(self.tokenize(s)) for s in slots]
+        mode = _needs_branches(self.spec.cfgpp, float(cfg_guidance))
+        # edit solvers invert with the source prompt (cs[0]) and sample with
+        # the target (cs[-1]); the others have one prompt for both
+        eps_fn = self._make_eps_fn(uc, cs[-1], cfg_guidance, mode=mode)
 
-        if init_latent_override is not None:
-            zT = torch.as_tensor(np.asarray(init_latent_override, np.float32),
-                                 device=self.device)
+        if self.spec.inversion:
+            if src_latent_override is not None:
+                z0 = self._as_f32(src_latent_override)
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    _stream_seed(seed, 2))
+                z0 = self._encode(src, gen)
+            if latent_init == "npi":
+                inv_eps = self._make_eps_fn(cs[0], cs[0], 1.0,
+                                            mode=(True, False))
+                zT = run_inversion(self.spec, self.inv_plan, inv_eps, z0, 1.0)
+            else:
+                inv_eps = self._make_eps_fn(uc, cs[0], cfg_guidance, mode=mode)
+                zT = run_inversion(self.spec, self.inv_plan, inv_eps, z0,
+                                   cfg_guidance)
+        elif init_latent_override is not None:
+            zT = self._as_f32(init_latent_override)
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             zT = init_latent(self.plan, gen, self.latent_shape(batch, res))
 
         final, traj = run_solver(self.spec, self.plan, eps_fn, zT,
                                  cfg_guidance,
+                                 noise_fn=self._noise_fn(seed, zT,
+                                                         noise_override),
                                  return_trajectory=return_trajectory)
         img = self._decode(final)
         return (img, traj) if return_trajectory else img
+
+    def _noise_fn(self, seed: int, zT: torch.Tensor, noise_override):
+        """The ancestral solvers' ``noise_fn(i, like)``: step i's draw from
+        a generator seeded from (seed, i), so that it does not depend on the
+        steps before it; or row i of ``noise_override``."""
+        if not self.plan.needs_noise:
+            return None
+        if noise_override is not None:
+            noise = self._as_f32(noise_override)
+            want = (self.plan.n_steps, *zT.shape)
+            if tuple(noise.shape) != want:
+                raise ValueError(f"noise_override: shape {tuple(noise.shape)},"
+                                 f" expected {want}")
+            return lambda i, like: noise[i]
+        gen = torch.Generator(device=self.device)
+
+        def noise_fn(i, like):
+            gen.manual_seed(_stream_seed(seed, 1, i))
+            return torch.randn(like.shape, generator=gen, dtype=like.dtype,
+                               device=like.device)
+        return noise_fn

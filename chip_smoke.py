@@ -51,7 +51,24 @@ Phases, one status line each; any failure exits non-zero:
    ``--quant all`` UNet call with the int8 kernels on f32 activations
    against the same modules with every kernel's plain version, with the
    launches of each entry point per call.
-7. summary: a JSON line of the kernels, then the result line
+7. solvers and inversion, on the bf16 bundle of phase 3: every SD solver
+   loop (the 14 of the registry, and the inversion loop in both forms) run
+   with a synthetic eps function on the card at the slice's latent shape,
+   held against the same loop on the CPU with the card's noise copied over
+   (1e-5 x the latent scale); then one request through
+   ``DiffusionEngine.sample`` per new sampling solver (euler, euler_a,
+   dpm++_2s_a, dpm++_2m, each in CFG form at w=7.5 and CFG++ form at
+   lambda=0.6), and five inversion requests (ddim_inversion,
+   ddim_inversion_cfg++, ddim_edit, ddim_edit_cfg++, and
+   ddim_inversion_cfg++ with latent_init="npi") of a 512^2 image made from
+   a seed, written with ``save_image`` and read back with ``load_image``.
+   Checks the images, the attention launches of each request exactly
+   (1601 for one UNet call a step, 3169 for DPM++ 2S, 3202 for an
+   inversion: 100 UNet calls, the bf16 decode and the f32 encode), and the
+   first step of every new kind with the kernel against the same step with
+   the plain attention (its UNet call's eps pair by phase 3's bound, the
+   guided eps_hat and the step's (z0t, zt) by that bound x max(1, w)).
+8. summary: a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
@@ -68,6 +85,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -190,6 +208,28 @@ ALL_LAUNCHES_PER_REQUEST = {
     "flash_attention_hd": 16 * NFE + 1,
     "flash_attention_hd_int8": 0,
 }
+
+# Phase 7.  The new sampling solvers run at the reference CLIs' guidance of
+# their form: w=7.5 for CFG, lambda=0.6 for CFG++.
+SAMPLING_SOLVERS = ("euler", "euler_cfg++", "euler_a", "euler_a_cfg++",
+                    "dpm++_2s_a", "dpm++_2s_a_cfg++", "dpm++_2m",
+                    "dpm++_2m_cfg++")
+# (solver, latent_init) of the inversion requests.
+INVERSION_REQUESTS = (("ddim_inversion", None), ("ddim_inversion_cfg++", None),
+                      ("ddim_edit", None), ("ddim_edit_cfg++", None),
+                      ("ddim_inversion_cfg++", "npi"))
+# flash_attention_hd launches per request: 32 per UNet call, + 1 for the
+# VAE decode (bf16), + 1 for the VAE encode (f32) of an inversion.
+SOLVER_LAUNCHES_PER_REQUEST = {
+    "one call a step": UNET_SITES_PER_CALL * NFE + 1,                # 1601
+    "dpm2s": UNET_SITES_PER_CALL * (2 * (NFE - 1) + 1) + 1,          # 3169
+    "inversion": UNET_SITES_PER_CALL * 2 * NFE + 2,                  # 3202
+}
+# The solver loops, card against CPU on the same inputs and noise: f32 on
+# both sides, only the devices' f32 rounding (sin, cos, fused multiply-adds)
+# differs, so max |card - cpu| <= LOOP_REL_TOL x max(1, max |cpu|).
+LOOP_REL_TOL = 1e-5
+LOOP_SHAPE = (1, RESOLUTION // 8, RESOLUTION // 8, 4)
 
 # (site, q shape, kv rows, heads, kv_len, calls per request).  Heads are 8
 # in every SD-1.5 UNet block; 5 transformer blocks per level (2 down, 3 up),
@@ -1077,6 +1117,234 @@ def phase_quant_drift(engine, engine_q, label: str) -> float:
     return worst
 
 
+def guidance_of(spec) -> float:
+    return GUIDANCE if spec.cfgpp else 7.5
+
+
+def eps_synthetic(z, t):
+    """The port's solver tests' synthetic eps pair (eps_uc, eps_c)."""
+    tt = t.float() * 0.001
+    return 0.05 * z + torch.sin(tt), -0.03 * z + torch.cos(2.0 * tt)
+
+
+def phase_solver_loops() -> float:
+    """Every SD solver's loop and the inversion loop in both forms on CUDA
+    tensors, each against the same loop on the CPU with the card's noise
+    copied over; returns the worst error relative to its bound."""
+    from cfgpp_tpu_torch.schedules.ddim import make_ddim_schedule
+    from cfgpp_tpu_torch.solvers import plans, registry, sampler
+
+    sched = make_ddim_schedule(NFE)
+    names = sorted({registry.get_solver_spec(n).name
+                    for n in registry.list_solvers("sd")})
+    check(len(names) == 14, f"{len(names)} SD solvers, expected 14")
+    worst = 0.0
+
+    def hold(what, got, want):
+        nonlocal worst
+        check(got.device.type == "cuda", f"loop {what}: ran on {got.device}")
+        err = (got.cpu() - want).abs().max().item()
+        tol = LOOP_REL_TOL * max(1.0, want.abs().max().item())
+        worst = max(worst, err / tol)
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"loop {what}: card vs CPU max err {err:.3e} (tol {tol:.3e})")
+
+    for name in names:
+        spec = registry.get_solver_spec(name)
+        plan = spec.plan_fn(sched)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        zT = sampler.init_latent(plan, gen, LOOP_SHAPE)
+        drawn = []
+
+        def card_noise(i, like):
+            drawn.append(torch.randn(like.shape, generator=gen,
+                                     device=like.device))
+            return drawn[-1]
+
+        ancestral = plan.needs_noise
+        got, (gz0, gzt) = sampler.run_solver(
+            spec, plan, eps_synthetic, zT, guidance_of(spec),
+            noise_fn=card_noise if ancestral else None, return_trajectory=True)
+        want, (wz0, wzt) = sampler.run_solver(
+            spec, plan, eps_synthetic, zT.cpu(), guidance_of(spec),
+            noise_fn=(lambda i, like: drawn[i].cpu()) if ancestral else None,
+            return_trajectory=True)
+        check(len(drawn) == (plan.n_steps if ancestral else 0),
+              f"loop {name}: {len(drawn)} noise draws")
+        for what, g, w in (("final", got, want), ("z0t", gz0, wz0),
+                           ("zt", gzt, wzt)):
+            hold(f"{name} {what}", g, w)
+    inv_plan = plans.plan_ddim_inversion(sched)
+    z0 = torch.randn(LOOP_SHAPE, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    for name in ("ddim_inversion", "ddim_inversion_cfg++"):
+        spec = registry.get_solver_spec(name)
+        got = sampler.run_inversion(spec, inv_plan, eps_synthetic, z0,
+                                    guidance_of(spec))
+        want = sampler.run_inversion(spec, inv_plan, eps_synthetic, z0.cpu(),
+                                     guidance_of(spec))
+        hold(f"run_inversion {name}", got, want)
+    print(f"  solver loops: {len(names)} solvers and run_inversion in both"
+          f" forms, {NFE} NFE at {LOOP_SHAPE}, card vs CPU within tolerance"
+          f" (worst {worst:.3f} of it; tol {LOOP_REL_TOL} x max(1, scale))",
+          flush=True)
+    return worst
+
+
+def source_image(path: Path) -> np.ndarray:
+    """A 512^2 image made from the seed, written with save_image and read
+    back with load_image (the inversion CLI's reader): [1, H, W, 3] in
+    [-1, 1]."""
+    from cfgpp_tpu_torch.utils.img import load_image, save_image, to_uint8
+
+    low = torch.rand((1, 3, 8, 8), generator=torch.Generator().manual_seed(SEED))
+    img = F.interpolate(low, size=(RESOLUTION, RESOLUTION), mode="bicubic",
+                        align_corners=False).clamp(0.0, 1.0)
+    img = img.permute(0, 2, 3, 1).numpy()
+    save_image(img, path)
+    arr = load_image(path, size=RESOLUTION, centered=True)
+    check(arr.shape == (1, RESOLUTION, RESOLUTION, 3)
+          and np.array_equal(arr, to_uint8(img) / np.float32(127.5) - 1.0),
+          "source image: load_image does not read back what save_image wrote")
+    return arr
+
+
+def expected_solver_launches(spec) -> int:
+    if spec.inversion:
+        return SOLVER_LAUNCHES_PER_REQUEST["inversion"]
+    if spec.kind == "dpm2s":
+        return SOLVER_LAUNCHES_PER_REQUEST["dpm2s"]
+    return SOLVER_LAUNCHES_PER_REQUEST["one call a step"]
+
+
+def phase_solver_requests(bundle, fa, tk, tc, src: np.ndarray,
+                          card: str) -> dict:
+    """One request per new sampling solver and the five inversion requests,
+    every count set to 0 just before each and read just after; returns
+    {label: s/image}."""
+    from cfgpp_tpu_torch.engine import DiffusionEngine
+
+    reads = counters(fa, tk, tc)
+    runs = [(name, None, ["", PROMPTS[0]], {}) for name in SAMPLING_SOLVERS]
+    runs += [(name, init, ["", PROMPTS[0], PROMPTS[1]] if "edit" in name
+              else ["", PROMPTS[0]], {"src_img": src, "latent_init": init})
+             for name, init in INVERSION_REQUESTS]
+    seconds = {}
+    for name, init, prompt, kw in runs:
+        engine = DiffusionEngine(bundle, name, nfe=NFE)
+        label = name + (f" latent_init={init}" if init else "")
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = engine.sample(prompt, cfg_guidance=guidance_of(engine.spec),
+                            seed=SEED, resolution=RESOLUTION, **kw)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        counts = {n: read() for n, read in reads.items()}
+        want = {n: 0 for n in reads}
+        want["flash_attention_hd"] = expected_solver_launches(engine.spec)
+        print(f"  {label} (w={guidance_of(engine.spec)}):"
+              f" {seconds[label]:.3f} s/image, flash_attention_hd launches"
+              f" {counts['flash_attention_hd']} [{card}]", flush=True)
+        check(img.dtype == torch.float32
+              and tuple(img.shape) == (1, RESOLUTION, RESOLUTION, 3),
+              f"{label}: image {tuple(img.shape)} {img.dtype}")
+        check(bool(torch.isfinite(img).all()), f"{label}: non-finite image")
+        check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+              f"{label}: image outside [0, 1]")
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+    return seconds
+
+
+def phase_first_steps(bundle, fa, src: np.ndarray) -> None:
+    """The first step of every new solver and of the inversion in both
+    forms, with the kernel and with the plain attention in its place, from
+    the same zT (or encoded latent) and noise: the eps pair of the step's
+    first UNet call by phase 3's UNet bound, its guided eps_hat and the
+    step's (z0t, zt) by that bound x max(1, w).  The step consumes eps_hat
+    = eps_uc + w (eps_c - eps_uc), and at w > 1 the mix multiplies the
+    error of the branches' difference by w: on the H100 (sd15, random
+    weights, the first Karras step) each branch reads rel-L2 1.6-1.8e-2,
+    eps_hat 4.2e-2 at w=7.5 and the CFG forms' z0t 3.7e-2."""
+    import dataclasses
+
+    from cfgpp_tpu_torch.engine import DiffusionEngine
+    from cfgpp_tpu_torch.models import attention
+    from cfgpp_tpu_torch.solvers import sampler, steps
+
+    for name in SAMPLING_SOLVERS + ("ddim_inversion", "ddim_inversion_cfg++"):
+        engine = DiffusionEngine(bundle, name, nfe=NFE)
+        spec, w = engine.spec, guidance_of(engine.spec)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with torch.inference_mode():
+            uc = engine._text_embed_sd(engine.tokenize([""]))
+            c = engine._text_embed_sd(engine.tokenize([PROMPTS[0]]))
+            if spec.inversion:
+                z = engine._encode(torch.from_numpy(src).cuda(), gen)
+            else:
+                z = sampler.init_latent(engine.plan, gen,
+                                        engine.latent_shape(1, RESOLUTION))
+            noise = torch.randn(z.shape, generator=gen, device="cuda")
+
+        def run():
+            eps_pairs = []
+
+            def eps_fn(zz, t):
+                eps_pairs.append(unet_eps(zz, t))
+                return eps_pairs[-1]
+
+            with torch.inference_mode():
+                unet_eps = engine._make_eps_fn(uc, c, w)
+                if spec.inversion:
+                    row = {k: torch.as_tensor(v[0], device="cuda")
+                           for k, v in engine.inv_plan.coeffs.items()}
+                    zt, z0t = steps.ddim_inversion_step(
+                        eps_fn, torch.tensor(w, device="cuda"), row, z,
+                        cfgpp=spec.cfgpp)
+                else:
+                    one = dataclasses.replace(engine.plan, n_steps=1)
+                    _, (z0s, zts) = sampler.run_solver(
+                        spec, one, eps_fn, z, w,
+                        noise_fn=lambda i, like: noise,
+                        return_trajectory=True)
+                    z0t, zt = z0s[0], zts[0]
+            eps_uc, eps_c = eps_pairs[0]
+            return eps_uc, eps_c, eps_uc + w * (eps_c - eps_uc), z0t, zt
+
+        got = run()
+        with mock.patch.object(attention, "flash_attention_hd",
+                               fa.flash_attention_hd_reference):
+            want = run()
+        errs = [rel_l2(g, x) for g, x in zip(got, want)]
+        step_tol = MODEL_REL_L2_TOL * max(1.0, w)
+        print(f"  {name} first step (w={w}): kernel vs plain attention rel_l2"
+              f" eps_uc {errs[0]:.3e}, eps_c {errs[1]:.3e} (tol"
+              f" {MODEL_REL_L2_TOL}); eps_hat {errs[2]:.3e}, z0t"
+              f" {errs[3]:.3e}, zt {errs[4]:.3e} (tol {step_tol:.3g})",
+              flush=True)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name} first step: non-finite output")
+        check(max(errs[:2]) <= MODEL_REL_L2_TOL,
+              f"{name} first step: the UNet's kernel path disagrees")
+        check(max(errs[2:]) <= step_tol,
+              f"{name} first step: the step's kernel path disagrees")
+
+
+def phase_solvers(bundle, fa, tk, tc, card: str) -> dict:
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase_solver_loops()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = source_image(Path(tmp) / "source.png")
+    phase_first_steps(bundle, fa, src)
+    seconds = phase_solver_requests(bundle, fa, tk, tc, src, card)
+    print(f"  phase 7 wall time {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return seconds
+
+
 # name: (source, the TPU kernel it replaces, the path whose run counts its
 # launches).
 KERNEL_SOURCES = {
@@ -1187,13 +1455,19 @@ def main() -> None:
     drift["all"] = phase_quant_drift(engine, engine_a, "int8-all")
     print("phase 5 ok: SD-1.5 ddim_cfg++ int8-all (--quant all) slice,"
           " 3 requests", flush=True)
-    del engine_a, engine, bundle
+    del engine_a, engine
     torch.cuda.empty_cache()
 
     launches["f32"] = phase_f32(fa, tk, tc, card)
     print("phase 6 ok: f32 VAE encode and UNet call on the f32 attention"
           " kernel; f32 --quant dense and --quant all UNet calls on the int8"
           " kernels", flush=True)
+
+    phase_solvers(bundle, fa, tk, tc, card)
+    print(f"phase 7 ok: {len(SAMPLING_SOLVERS)} new sampling solvers and"
+          f" {len(INVERSION_REQUESTS)} inversion/edit requests", flush=True)
+    del bundle
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():

@@ -1,11 +1,12 @@
 """The port's copies of the JAX package's numpy-only modules, held equal.
 
-``cfgpp_tpu_torch/configs.py``, ``schedules/ddim.py`` and
-``weights/tokenizer.py`` are copies of their ``cfgpp_tpu`` namesakes, so
-that the port imports nothing of the JAX package.  Each test compares the
-copy with the original on the same inputs: every bundle config field by
-field, the DDIM tables array by array, and token ids from the hash
-fallback and from a small BPE vocabulary.  The last test imports every
+``cfgpp_tpu_torch/configs.py``, ``schedules/ddim.py``,
+``schedules/karras.py`` and ``weights/tokenizer.py`` are copies of their
+``cfgpp_tpu`` namesakes, so that the port imports nothing of the JAX
+package.  Each test compares the copy with the original on the same inputs:
+every bundle config field by field, the DDIM tables array by array, the
+Karras helpers' outputs, and token ids from the hash fallback and from a
+small BPE vocabulary.  The last test imports every
 module of the port in a fresh interpreter and finds neither the JAX
 package nor jax, jaxlib or flax loaded.
 """
@@ -21,9 +22,10 @@ import pytest
 
 from cfgpp_tpu import configs as jax_configs
 from cfgpp_tpu.schedules import ddim as jax_ddim
+from cfgpp_tpu.schedules import karras as jax_karras
 from cfgpp_tpu.weights import tokenizer as jax_tokenizer
 from cfgpp_tpu_torch import configs
-from cfgpp_tpu_torch.schedules import ddim
+from cfgpp_tpu_torch.schedules import ddim, karras
 from cfgpp_tpu_torch.weights import tokenizer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -62,6 +64,44 @@ def test_ddim_schedule_equal(nfe, spacing):
     assert np.array_equal(got.sigmas_ve, want.sigmas_ve)
     assert [got.alpha(t) for t in (-1, 0, 1, 999)] == [
         want.alpha(t) for t in (-1, 0, 1, 999)]
+
+
+def _karras_cases():
+    sig = ddim.make_ddim_schedule(50).sigmas_ve
+    probe = np.array([0.0292, 0.5, 1.0, 3.7, 14.6])
+    return [
+        ("append_zero", (np.array([3.0, 2.0, 1.0]),), {}),
+        ("get_sigmas_karras", (50, float(sig.min()), float(sig.max())), {}),
+        ("get_sigmas_karras", (4, 0.1, 10.0), dict(rho=3.0)),
+        ("get_ancestral_step", (14.6, 9.7), {}),
+        ("get_ancestral_step", (1.0, 0.0), {}),
+        ("get_ancestral_step", (2.0, 1.5), dict(eta=0.0)),
+        ("get_ancestral_step", (2.0, 1.5), dict(eta=0.5)),
+        ("timestep_log_nearest", (probe, np.log(sig)), {}),
+        ("timestep_log_nearest", (3.7, np.log(sig)), {}),
+        ("sigma_to_t_linear", (probe, sig), dict(quantize=True)),
+        ("sigma_to_t_linear", (probe, sig), dict(quantize=False)),
+        ("calculate_input_scale", (probe,), {}),
+        ("calculate_input_scale", (14.6,), {}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_karras_cases())))
+def test_karras_functions_equal(case):
+    name, args, kw = _karras_cases()[case]
+    got, want = (r if isinstance(r, tuple) else (r,) for r in (
+        getattr(karras, name)(*args, **kw), getattr(jax_karras, name)(*args, **kw)))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and np.array_equal(a, b), (name, a, b)
+
+
+def test_karras_names_equal():
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
+                              and callable(getattr(m, n))
+                              and getattr(m, n).__module__ == m.__name__)
+    assert public(karras) == public(jax_karras)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(vocab_size=1000, eos_token_id=999),
@@ -107,6 +147,9 @@ def test_port_imports_nothing_of_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) > 25, names\n"
+        "for new in ('cfgpp_tpu_torch.schedules.karras',\n"
+        "            'cfgpp_tpu_torch.cli.inversion'):\n"
+        "    assert new in names, new\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('cfgpp_tpu', 'jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n")
