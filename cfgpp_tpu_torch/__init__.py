@@ -11,7 +11,8 @@ Layer map (bottom-up):
   csrc/       hand-written CUDA C++ kernels (sm_90a), built at first use
   kernels/    their wrappers (kernel on a CUDA tensor, plain PyTorch on a
               CPU tensor), the nvcc build and the ctypes loader
-  models/     CLIP text encoder, UNet2DCondition (SD-1.5 layout), VAE
+  models/     CLIP text encoder, UNet2DCondition (SD-1.5 and SD-2.x
+              layouts), VAE
   weights/    JAX parameter trees -> the port's state dicts; the CLIP
               tokenizer (copy)
   schedules/  DDIM noise-schedule tables and Karras sigmas (copies)

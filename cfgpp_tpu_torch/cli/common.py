@@ -13,7 +13,7 @@ import torch
 from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
 from cfgpp_tpu_torch.solvers.registry import list_solvers
 
-MODELS = ("sd15", "tiny_sd")
+MODELS = ("sd15", "sd20", "sd21", "sd21_v", "tiny_sd")   # the JAX SD_MODELS
 
 # Reference default negative prompt (examples/text_to_img.py:17).
 DEFAULT_NULL_PROMPT = ("low quality,jpeg artifacts,blurry,poorly drawn,ugly,"

@@ -1,7 +1,8 @@
 """Text-to-image CLI, counterpart of ``cfgpp_tpu/cli/text_to_img.py``.
 
 Run: ``python -m cfgpp_tpu_torch.cli.text_to_img --model sd15 --method
-ddim_cfg++ --cfg_guidance 0.6 --NFE 50 --prompt "..." --device cuda``.
+ddim_cfg++ --cfg_guidance 0.6 --NFE 50 --prompt "..." --device cuda``
+(``--model sd21_v`` for SD-2.1 at 768^2, v-prediction).
 Writes ``<workdir>/result/generated.png``.
 """
 

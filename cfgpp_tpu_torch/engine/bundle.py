@@ -110,8 +110,8 @@ class ModelBundle:
         cfg = (get_bundle_config(config_or_name)
                if isinstance(config_or_name, str) else config_or_name)
         if cfg.family != "sd":
-            raise ValueError(f"the PyTorch port covers the sd family; got "
-                             f"{cfg.name} ({cfg.family})")
+            raise ValueError(f"the PyTorch port covers the sd family (SD-1.5 "
+                             f"and SD-2.x); got {cfg.name} ({cfg.family})")
         vae_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
         with torch.device("meta"):
             unet = UNet2DConditionModel(cfg.unet)

@@ -56,6 +56,12 @@ class DiffusionEngine:
             nfe, timestep_spacing=self.spec.timestep_spacing)
         self.plan = self.spec.plan_fn(self.schedule)
         self.inv_plan = plan_ddim_inversion(self.schedule)
+        # alpha-bar on the device once, for the v -> eps conversion
+        self._abar = None
+        if bundle.config.unet.prediction_type == "v_prediction":
+            self._abar = torch.as_tensor(self.schedule.alphas_cumprod,
+                                         dtype=torch.float32,
+                                         device=self.device)
 
     @property
     def device(self) -> torch.device:
@@ -82,10 +88,23 @@ class DiffusionEngine:
                      mode: Optional[Tuple[bool, bool]] = None):
         """Batched cond/uncond epsilon function ``eps_fn(z, t) -> (eps_uc,
         eps_c)``.  The cross-attention k/v depend only on the text context,
-        so they are computed once here rather than in every UNet call."""
+        so they are computed once here rather than in every UNet call.  A
+        v-prediction UNet's output becomes eps at this boundary, in f32
+        (``cfgpp_tpu/engine/pipeline.py:135-140``): ``eps = sqrt(abar_t) v
+        + sqrt(1 - abar_t) z``, so every solver, the inversion and the edit
+        see eps."""
         unet = self.bundle.unet
         needs_uc, needs_c = mode if mode is not None else _needs_branches(
             self.spec.cfgpp, float(w))
+
+        def apply(z, t, ctx, ckv):
+            out = unet(z, t, ctx, cross_kv=ckv)
+            if self._abar is None:
+                return out
+            a = self._abar[torch.as_tensor(t, device=z.device).long().clamp(
+                0, self._abar.shape[0] - 1)]
+            a = a.reshape((-1,) + (1,) * (z.ndim - 1))
+            return torch.sqrt(a) * out + torch.sqrt(1.0 - a) * z.float()
 
         if needs_uc and needs_c:
             ctx = torch.cat([uc, c], dim=0)
@@ -93,7 +112,7 @@ class DiffusionEngine:
 
             def eps_fn(z, t):
                 b = z.shape[0]
-                out = unet(torch.cat([z, z], dim=0), t, ctx, cross_kv=ckv)
+                out = apply(torch.cat([z, z], dim=0), t, ctx, ckv)
                 return out[:b], out[b:]
             return eps_fn
 
@@ -101,7 +120,7 @@ class DiffusionEngine:
         ckv = precompute_cross_kv(unet, ctx)
 
         def eps_fn(z, t):
-            out = unet(z, t, ctx, cross_kv=ckv)
+            out = apply(z, t, ctx, ckv)
             return out, out
         return eps_fn
 

@@ -1,4 +1,5 @@
-"""CLIP text encoder (ViT-L/14 for SD-1.5), counterpart of
+"""CLIP text encoder (ViT-L/14 for SD-1.5, OpenCLIP ViT-H/14's with erf
+gelu for SD-2.x), counterpart of
 ``cfgpp_tpu/models/clip.py``.
 
 Module names follow the HF transformers state-dict layout

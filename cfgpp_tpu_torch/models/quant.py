@@ -17,12 +17,13 @@ runs W8A8 through `int8_matmul`; a 3x3 conv runs `int8_conv3x3` where
 dequantized weights (plain torch, as the JAX package leaves it to XLA).
 `groupnorm_silu_coeffs` folds a GroupNorm (and the resnet's time-embedding
 add) into the per-(sample, channel) affine that `int8_conv3x3` applies
-before its quantize.
+before its quantize (and the linear transformer's proj_in, through
+`int8_matmul`'s affine prologue, without the SiLU).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -117,8 +118,10 @@ class _Int8Layer(nn.Module):
 
 class QuantLinear(_Int8Layer):
     """Int8 replacement for a `Linear` (``weight`` int8 [out, in]).
-    forward(x, ln=, residual=) fuses a preceding `LayerNorm` and a residual
-    add into the one `int8_matmul` call; the output has x's dtype."""
+    forward(x, ln=, residual=, affine=) fuses a preceding `LayerNorm` (or a
+    per-(sample, channel) affine: the linear proj_in's GroupNorm) and a
+    residual add into the one `int8_matmul` call; the output has x's
+    dtype."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
@@ -140,10 +143,16 @@ class QuantLinear(_Int8Layer):
             *quantize_kernel_int8(weight), bias)
 
     def forward(self, x: torch.Tensor, ln: Optional[nn.LayerNorm] = None,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``affine``: (scale, bias) f32 [B, in] of a per-(sample, channel)
+        ``x*scale + bias`` ahead of the quantize (x [B, T, in])."""
+        kw = ln_kwargs(ln)
+        if affine is not None:
+            kw.update(affine_scale=affine[0], affine_bias=affine[1])
         return int8_matmul(x, self.weight, self.weight_scale, self.bias,
-                           residual=residual, out_dtype=x.dtype,
-                           **ln_kwargs(ln))
+                           residual=residual, out_dtype=x.dtype, **kw)
 
 
 class QuantConv(_Int8Layer):

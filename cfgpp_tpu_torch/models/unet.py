@@ -1,4 +1,4 @@
-"""UNet2DConditionModel, SD-1.5 layout; counterpart of
+"""UNet2DConditionModel, SD-1.5 and SD-2.x layouts; counterpart of
 ``cfgpp_tpu/models/unet.py``.
 
 Module names follow the diffusers state-dict layout.  The public layout is
@@ -9,16 +9,22 @@ the convolutions take as it is, and the way back to tokens is a view.
 Parameters are in the compute dtype (bf16 on the card); norms keep f32
 statistics.
 
-Covered: the conv-projection `Transformer2DModel` of SD-1.5 (and the tiny
-test config), exact and int8 ``mode="dense"`` and ``mode="all"``
-(`cfgpp_tpu_torch.weights.quantize` swaps the transformer projections for
-`QuantLinear`/`QuantConv`; the blocks below then take the JAX package's
-quant plumbing: each pre-LayerNorm rides the first int8 matmul of its
-sublayer, each residual the last.  ``mode="all"`` also swaps the resnet
-convs and the upsampler conv, and the resnet folds each GroupNorm + SiLU
-into its conv's prologue, the time embedding into norm2's coefficients and
-the skip add into conv2's epilogue).  The linear-projection variant and
-SDXL's added text/time embedding are rejected, not approximated.
+Covered: the `Transformer2DModel` in both layouts, SD-1.5's 1x1-conv
+projections and SD-2.x's linear projections (``use_linear_projection``:
+GroupNorm, the tokens view, ``Linear`` proj_in, the blocks, ``Linear``
+proj_out, the image view plus the residual), exact and int8
+``mode="dense"`` and ``mode="all"`` (`cfgpp_tpu_torch.weights.quantize`
+swaps the transformer projections for `QuantLinear`/`QuantConv`; the
+blocks below then take the JAX package's quant plumbing: each
+pre-LayerNorm rides the first int8 matmul of its sublayer, each residual
+the last.  A linear proj_in takes the transformer's GroupNorm as the
+per-(sample, channel) ``affine`` prologue of its `int8_matmul`, and the
+linear proj_out the transformer's input as its fused residual.
+``mode="all"`` also swaps the resnet convs and the upsampler conv, and the
+resnet folds each GroupNorm + SiLU into its conv's prologue, the time
+embedding into norm2's coefficients and the skip add into conv2's
+epilogue).  SDXL's added text/time embedding is rejected, not
+approximated.
 """
 
 from __future__ import annotations
@@ -175,28 +181,48 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer with 1x1-conv projections (SD-1.5 layout)."""
+    """Spatial transformer: 1x1-conv projections (SD-1.5) or, with
+    ``linear``, linear ones over the tokens (SD-2.x,
+    ``cfgpp_tpu/models/unet.py:190-275``)."""
 
     def __init__(self, ch: int, num_heads: int, head_dim: int, num_layers: int,
-                 ctx_dim: int, groups: int):
+                 ctx_dim: int, groups: int, linear: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.norm = GroupNorm(groups, ch, eps=1e-6)
-        self.proj_in = Conv2d(ch, inner, 1)
+        self.proj_in = Linear(ch, inner) if linear else Conv2d(ch, inner, 1)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(inner, num_heads, head_dim, ctx_dim)
              for _ in range(num_layers)])
-        self.proj_out = Conv2d(inner, ch, 1)
+        self.proj_out = Linear(inner, ch) if linear else Conv2d(inner, ch, 1)
 
     def forward(self, x, context, kv_len=None, cross_kv=None):
         h, w = x.shape[2:]
-        t = _tokens(self.proj_in(self.norm(x)))
+        t = self._project_in(x)
         for i, blk in enumerate(self.transformer_blocks):
             t = blk(t, context, kv_len=kv_len,
                     cached_kv=None if cross_kv is None else cross_kv[i])
+        if isinstance(self.proj_out, QuantLinear):
+            return _image(self.proj_out(t, residual=_tokens(x)), h, w)
+        if isinstance(self.proj_out, nn.Linear):
+            return _image(self.proj_out(t), h, w) + x
         if isinstance(self.proj_out, QuantConv):
             return self.proj_out(_image(t, h, w), residual=x)
         return self.proj_out(_image(t, h, w)) + x
+
+    def _project_in(self, x):
+        """GroupNorm and proj_in -> tokens [B, H*W, inner].  An int8 linear
+        proj_in takes the GroupNorm as its `int8_matmul`'s per-(sample,
+        channel) affine prologue (``cfgpp_tpu/models/unet.py:210-230``):
+        one statistics pass, no normalized copy, and no SiLU."""
+        if isinstance(self.proj_in, QuantLinear):
+            n = self.norm
+            s, b = groupnorm_silu_coeffs(x.permute(0, 2, 3, 1), n.weight,
+                                         n.bias, n.num_groups, eps=n.eps)
+            return self.proj_in(_tokens(x), affine=(s, b))
+        if isinstance(self.proj_in, nn.Linear):
+            return self.proj_in(_tokens(self.norm(x)))
+        return _tokens(self.proj_in(self.norm(x)))
 
 
 class Downsample2D(nn.Module):
@@ -222,14 +248,15 @@ class _Block(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    """The eps-prediction network.  forward(sample [B,H,W,4] NHWC, t [B] or
-    scalar, context [B,77,cross_dim]) -> eps [B,H,W,4] f32."""
+    """The noise-prediction network.  forward(sample [B,H,W,4] NHWC, t [B] or
+    scalar, context [B,77,cross_dim]) -> eps (v with ``prediction_type``
+    "v_prediction"; the engine converts it) [B,H,W,4] f32."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.use_linear_projection or cfg.addition_embed_type is not None:
-            raise ValueError("the PyTorch port covers the SD-1.5 UNet layout "
-                             "(conv projections, no added text/time embedding)")
+        if cfg.addition_embed_type is not None:
+            raise ValueError("the PyTorch port covers the SD-1.5 and SD-2.x "
+                             "UNet layouts (no added text/time embedding)")
         self.config = cfg
         b0 = cfg.block_out_channels[0]
         temb = cfg.time_embed_dim
@@ -243,7 +270,9 @@ class UNet2DConditionModel(nn.Module):
             heads = cfg.num_attention_heads[level]
             return Transformer2DModel(ch, heads, ch // heads,
                                       cfg.transformer_layers_per_block[level],
-                                      cfg.cross_attention_dim, cfg.norm_num_groups)
+                                      cfg.cross_attention_dim,
+                                      cfg.norm_num_groups,
+                                      linear=cfg.use_linear_projection)
 
         n_blocks = len(cfg.block_out_channels)
         ch, skips = b0, [b0]

@@ -1,0 +1,97 @@
+"""Where one request's device time goes, per form, on one GPU.
+
+    python3 -m cfgpp_tpu_torch.tools.profile_requests [--model sd21_v]
+
+Per form (exact, ``--quant dense``, ``--quant all``): one warm-up request,
+three timed ones (host clock around ``DiffusionEngine.sample`` and
+a synchronize; median and range of s/image), then one request under
+``torch.profiler``: the device time summed over its device events (kernels,
+copies, memsets), the busy share (that sum over the median s/image) and the
+kernels that took the most of it, by name.  Random weights from seed 0,
+``ddim_cfg++`` at lambda=0.6, 50 NFE, batch 1, bf16, the model's default
+resolution; cuDNN and cuBLAS TF32 off, as ``chip_smoke.py`` runs them.
+Prints the card's name and power limit, then one JSON line per form.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+PROMPT = "a photograph of an astronaut riding a horse"
+NFE = 50
+FORMS = ("exact", "dense", "all")
+REQUESTS = 3
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "--id=0"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def one(engine, res: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.sample(["", PROMPT], cfg_guidance=0.6, seed=42, resolution=res)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def device_split(engine, res: int, top: int = 12) -> dict:
+    """Device seconds of one profiled request, in all and by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one(engine, res)
+    by_name = collections.Counter()
+    events = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:70]] += e.time_range.elapsed_us() / 1e6
+            events += 1
+    return {"device_s": sum(by_name.values()), "device_events": events,
+            "top": [[name, s] for name, s in by_name.most_common(top)]}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", default="sd21_v")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_requests: needs a CUDA device")
+    from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = card()
+    print(name, flush=True)
+    bundle = ModelBundle.random_init(args.model, seed=0, dtype=torch.bfloat16,
+                                     device="cuda")
+    res = bundle.config.default_resolution
+    for form in FORMS:
+        b = bundle if form == "exact" else bundle.quantized(form)
+        engine = DiffusionEngine(b, "ddim_cfg++", nfe=NFE)
+        one(engine, res)
+        secs = [one(engine, res) for _ in range(REQUESTS)]
+        med = statistics.median(secs)
+        split = device_split(engine, res)
+        print(json.dumps({
+            "model": args.model, "form": form, "resolution": res,
+            "nfe": NFE, "tf32": False, "card": name,
+            "s_per_image": secs, "median_s": med,
+            "busy_share": split["device_s"] / med, **split}), flush=True)
+        del engine, b
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

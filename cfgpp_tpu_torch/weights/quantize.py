@@ -3,8 +3,9 @@
 
 ``mode="dense"`` (the JAX package's default) swaps every transformer
 projection for an int8 W8A8 layer: attention to_q/to_k/to_v/to_out, the
-GEGLU feed-forward's ff.net.0.proj and ff.net.2, and the 1x1-conv
-proj_in/proj_out.  Self-attention's to_q/to_k/to_v are packed into one
+GEGLU feed-forward's ff.net.0.proj and ff.net.2, and proj_in/proj_out
+(1x1-conv `QuantConv`s in the SD-1.5 layout, `QuantLinear`s in SD-2.x's
+linear one).  Self-attention's to_q/to_k/to_v are packed into one
 ``attn1.to_qkv`` (one activation quantize, one matmul; per-output-channel
 quantization commutes with the concat).  ``mode="all"`` also swaps each
 resnet's conv1/conv2/conv_shortcut and each upsampler's conv
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch import nn
 
 from cfgpp_tpu_torch.models.quant import QuantConv, QuantLinear
 from cfgpp_tpu_torch.models.unet import (BasicTransformerBlock,
@@ -45,8 +47,10 @@ def _swap_(module, mode: str, make: Callable) -> None:
     mods = list(module.modules())
     for tr in mods:
         if isinstance(tr, Transformer2DModel):
-            tr.proj_in = swap(QuantConv, tr.proj_in)
-            tr.proj_out = swap(QuantConv, tr.proj_out)
+            linear = isinstance(tr.proj_in, nn.Linear)
+            proj = QuantLinear if linear else QuantConv
+            tr.proj_in = swap(proj, tr.proj_in)
+            tr.proj_out = swap(proj, tr.proj_out)
     for blk in mods:
         if not isinstance(blk, BasicTransformerBlock):
             continue

@@ -16,10 +16,16 @@ Phases, one status line each; any failure exits non-zero:
    roofline.py``) and, for the attention, the time of
    ``scaled_dot_product_attention`` on the same inputs and the backend that
    served it: flash_attention_hd, flash_attention_qkv_packed (bf16 and f32),
-   int8_matmul (every mode the int8 slice uses, and the affine prologue at a
-   level-1 shape), int8_ff_geglu, int8_conv3x3 (the four SD-1.5 sites of
-   ``--quant all``, and the GroupNorm prologue with the residual) and the
-   int8-score attention (packed at level 1, unpacked at d=40).  The int8
+   int8_matmul (every mode the int8 slices use), int8_ff_geglu,
+   int8_conv3x3 (the four SD-1.5 sites of ``--quant all``, and the
+   GroupNorm prologue with the residual) and the int8-score attention
+   (packed at level 1, unpacked at d=40); then the same kernels at sd21_v's
+   768^2 shapes (phase 8's path: head dim 64 at 9216/2304/576/144 tokens
+   with 5/10/20/20 heads, the cross k/v from a 1024-wide context, the VAE's
+   d=512 attention at 9216 tokens in bf16 and in f32, proj_in's affine
+   prologue, the one 768^2 conv int8_conv3x3_supported admits and the
+   level-1 int8 score).  Each model's rows keep their own per-request
+   sums.  The int8
    kernels are also held stage by stage: their int8 rows (conv: windows,
    attention: q and k) and scales against the plain quantizers, the
    feed-forward's f32 hidden state and its requantize, and each GEMM and
@@ -38,8 +44,9 @@ Phases, one status line each; any failure exits non-zero:
    images, the launches per request of each of the four kernels, one
    quantized UNet call against the same modules with every kernel's plain
    version, the quant-drift gate of ``cfgpp_tpu/cli/parity_check.py``
-   (worst per-step rel-MAE of the int8 trajectory against the exact one
-   from the same zT, < 0.15), and peak device memory.
+   (worst per-step rel-MAE of the first int8 request's trajectory against
+   the first exact request's, from the same prompt, seed and zT, < 0.15),
+   and peak device memory.
 5. int8-all slice: the same requests with ``--quant all`` (the int8 UNet of
    phase 4 plus int8 resnet and upsampler convs and the int8-score
    self-attention where the JAX route takes them).  The same checks, with
@@ -68,8 +75,22 @@ Phases, one status line each; any failure exits non-zero:
    first step of every new kind with the kernel against the same step with
    the plain attention (its UNet call's eps pair by phase 3's bound, the
    guided eps_hat and the step's (z0t, zt) by that bound x max(1, w)).
-8. summary: a JSON line of the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+8. SD-2.x: ``sd21_v`` (SD-2.1 widths and depth: linear-projection
+   transformers, the 23-layer 1024-wide gelu CLIP, v-prediction) at 768^2,
+   random weights from seed 0, bf16, ``ddim_cfg++`` at lambda=0.6, 50 NFE,
+   batch 1, after the SD-1.5 bundle is freed.  One UNet call and one VAE
+   decode with the kernel against the plain attention (phase 3's bound);
+   the first step's eps pair, eps_hat and (z0t, zt) against the same step
+   with the plain attention (phase 7's rules: the v -> eps conversion runs
+   on the card); three exact requests, one ``--quant dense`` and one
+   ``--quant all`` request (each with its UNet call against every kernel's
+   plain version at phases 4-5's bounds, its launches of every entry point
+   exactly, its quant drift against the first exact request < 0.15) and
+   one ``ddim_inversion_cfg++`` request of a 768^2 image made from the
+   seed; s/image and peak device memory of each.
+9. summary: a JSON line of the kernels (``launches_by_path`` with the
+   sd21_v runs; ``by_model``: each model's per-request sums), then the
+   result line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
 exits non-zero.
@@ -100,11 +121,13 @@ ROOT = Path(__file__).resolve().parent
 #   A fused LayerNorm sums its statistics in another order than torch, which
 #   flips a few int8 levels; there the output is held to the CPU tests' rule
 #   ("ulp": no more than ULP_SHARE of the elements beyond one bf16 ulp of
-#   the plain output, none beyond KERNEL_REL_TOL x max |plain|).  On f32
-#   activations a flipped level moves its whole output row (and, in the
-#   feed-forward, the row's hidden state and requantize), so there the rows
-#   whose int8 input the LayerNorm flipped are left out of the share: one
-#   such row is 1/512 of the outputs at level 2, more than ULP_SHARE.  The
+#   the plain output, none beyond KERNEL_REL_TOL x max |plain|).  A flipped
+#   level moves its whole output row (and, in the feed-forward, the row's
+#   hidden state and requantize), so the rows whose int8 input the
+#   LayerNorm flipped are left out of the share: one such row is 1/512 of
+#   the outputs at level 2 and 1/128 in SD-1.5's mid block, more than
+#   ULP_SHARE (on the H100 a bf16 mid-block FF read 2.74e-3 with all rows
+#   counted, 6.2e-6 without its one flipped row).  The
 #   stage checks bound the flips (LN_FLIP_SHARE) and hold every later stage
 #   exactly.
 # - int8 stages: the quantized rows are the plain version's bit for bit
@@ -209,6 +232,29 @@ ALL_LAUNCHES_PER_REQUEST = {
     "flash_attention_hd_int8": 0,
 }
 
+# Phase 8: sd21_v (SD-2.1, v-prediction) at 768^2, the same 50-NFE
+# ddim_cfg++ requests.  The UNet has SD-1.5's 16 transformer blocks (32
+# attention sites a call), head dim 64 at every site.  --quant all: 14
+# conv_shortcut int8_matmuls a call as in SD-1.5; of its 47 3x3 convs
+# int8_conv3x3_supported admits one at 768^2 (up_blocks.2's upsampler,
+# [2, 96, 96, 640] -> 640, br 8: the 48^2 and smaller latents have W no
+# multiple of 32, the 96^2 resnets c*o < 640*640); the int8 score applies
+# at level 1 only (2304 tokens, 10 heads: level 0's 9216 kv rows exceed one
+# TPU block, levels 2 and mid are under FLASH_MIN_Q_LEN).
+# tests/test_torch_port_sd2_sites.py derives these from the JAX predicates.
+SD2_RESOLUTION = 768
+SD2_LAUNCHES_PER_REQUEST = {
+    "exact": {"flash_attention_hd": UNET_SITES_PER_CALL * NFE + 1},
+    "dense": dict(INT8_LAUNCHES_PER_REQUEST),
+    "all": {"int8_matmul": INT8_LAUNCHES_PER_REQUEST["int8_matmul"] + 14 * NFE,
+            "int8_ff_geglu": 16 * NFE,
+            "int8_conv3x3": 1 * NFE,
+            "flash_attention_qkv_packed_int8": 5 * NFE,
+            "flash_attention_qkv_packed": 11 * NFE,
+            "flash_attention_hd": 16 * NFE + 1},
+    "inversion": {"flash_attention_hd": UNET_SITES_PER_CALL * 2 * NFE + 2},
+}
+
 # Phase 7.  The new sampling solvers run at the reference CLIs' guidance of
 # their form: w=7.5 for CFG, lambda=0.6 for CFG++.
 SAMPLING_SOLVERS = ("euler", "euler_cfg++", "euler_a", "euler_a_cfg++",
@@ -255,7 +301,7 @@ LEVELS = [("L0", 4096, 320, 5), ("L1", 1024, 640, 5), ("L2", 256, 1280, 5),
           ("mid", 64, 1280, 1)]
 # (site, x shape, N, mode, calls per request) for int8_matmul.  Modes: "ln"
 # (fused pre-LayerNorm), "bias_res" (bias + residual), "bias", "none",
-# "affine" (per-(sample, channel) prologue; not on the SD-1.5 path).
+# "affine" (per-(sample, channel) prologue: SD-2.x's linear proj_in).
 INT8_MATMUL_CASES = [
     case for lvl, n, c, blocks in LEVELS for case in (
         (f"{lvl} to_qkv", (2, n, c), 3 * c, "ln", blocks * NFE),
@@ -265,7 +311,6 @@ INT8_MATMUL_CASES = [
         (f"{lvl} proj_in", (2, n, c), c, "bias", blocks * NFE))
 ] + [(f"{lvl} cross k/v", (2, 77, 768), c, "none", 2 * blocks)
      for lvl, _, c, blocks in LEVELS] + [
-    ("L1 affine prologue", (2, 1024, 640), 640, "affine", 0),
     ("edges: M 100, K 80, N 48 (not on the path)", (1, 100, 80), 48,
      "bias_res", 0)]
 # (site, x shape, calls per request) for int8_ff_geglu: N = 4C, O = C.
@@ -302,6 +347,54 @@ INT8_ATTENTION_CASES = [
     ("d=40, 1024 tokens", (2, 1024, 320), 8, False, 0),
 ]
 
+
+# The same kernels at sd21_v's 768^2 shapes (phase 8's path): (level, tokens
+# per image, channels, heads, transformer blocks); head dim 64 everywhere,
+# the cross context 1024 wide.  Calls per request are phase 8's: exact for
+# the bf16 attention, dense for the packed and int8 rows, all for the conv
+# and the int8 score; the f32 attention at d=512 is the VAE encode of an
+# inversion request.
+SD2_LEVELS = [("L0", 9216, 320, 5, 5), ("L1", 2304, 640, 10, 5),
+              ("L2", 576, 1280, 20, 5), ("mid", 144, 1280, 20, 1)]
+SD2_ATTENTION_CASES = [
+    case for lvl, n, c, h, blocks in SD2_LEVELS for case in (
+        (f"sd21_v {lvl} self", (2, n, c), n, h, None, blocks * NFE),
+        (f"sd21_v {lvl} cross", (2, n, c), 77, h, None, blocks * NFE))
+] + [("sd21_v vae mid self", (1, 9216, 512), 9216, 1, None, 1)]
+SD2_F32_ATTENTION_CASES = [
+    ("sd21_v vae mid self (the inversion's f32 encode)", (1, 9216, 512),
+     9216, 1, None, 1)]
+SD2_PACKED_CASES = [(f"sd21_v {lvl} self packed", (2, n, 3 * c), h,
+                     blocks * NFE) for lvl, n, c, h, blocks in SD2_LEVELS]
+SD2_INT8_MATMUL_CASES = [
+    case for lvl, n, c, _, blocks in SD2_LEVELS for case in (
+        (f"sd21_v {lvl} to_qkv", (2, n, c), 3 * c, "ln", blocks * NFE),
+        (f"sd21_v {lvl} to_q", (2, n, c), c, "ln", blocks * NFE),
+        (f"sd21_v {lvl} attn1/attn2 to_out, proj_out", (2, n, c), c,
+         "bias_res", 3 * blocks * NFE),
+        (f"sd21_v {lvl} proj_in (GroupNorm as the affine prologue)",
+         (2, n, c), c, "affine", blocks * NFE))
+] + [(f"sd21_v {lvl} cross k/v", (2, 77, 1024), c, "none", 2 * blocks)
+     for lvl, _, c, _, blocks in SD2_LEVELS]
+SD2_INT8_FF_CASES = [(f"sd21_v {lvl} ff", (2, n, c), blocks * NFE)
+                     for lvl, n, c, _, blocks in SD2_LEVELS]
+SD2_CONV_CASES = [("sd21_v up_blocks.2 upsampler", (2, 96, 96, 640), 640,
+                   False, False, 8, NFE)]
+SD2_INT8_ATTENTION_CASES = [("sd21_v L1 self packed", (2, 2304, 3 * 640), 10,
+                             True, 5 * NFE)]
+# Each kind of phase-2 row: (model, its cases) in table order.
+CASES = {
+    "attention": (("sd15", ATTENTION_CASES), ("sd21_v", SD2_ATTENTION_CASES)),
+    "attention_f32": (("sd15", ATTENTION_CASES),
+                      ("sd21_v", SD2_F32_ATTENTION_CASES)),
+    "packed": (("sd15", PACKED_CASES), ("sd21_v", SD2_PACKED_CASES)),
+    "int8_matmul": (("sd15", INT8_MATMUL_CASES),
+                    ("sd21_v", SD2_INT8_MATMUL_CASES)),
+    "int8_ff": (("sd15", INT8_FF_CASES), ("sd21_v", SD2_INT8_FF_CASES)),
+    "conv": (("sd15", CONV_CASES), ("sd21_v", SD2_CONV_CASES)),
+    "int8_attention": (("sd15", INT8_ATTENTION_CASES),
+                       ("sd21_v", SD2_INT8_ATTENTION_CASES)),
+}
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -408,9 +501,11 @@ class KernelTable:
 
     def measure(self, kernel_name, site, desc, kernel, ref, plain, calls,
                 work, rule="rel", library=None, others=None,
-                bf16_values=False, flipped_rows=None):
-        """``rule``: "rel", "f32", "exact" or "ulp" (see the tolerances
-        above); ``bf16_values``: the (f32) output must hold bf16 values;
+                bf16_values=False, flipped_rows=None, model="sd15"):
+        """``model``: the model whose path makes these calls (its requests'
+        sums are kept apart).  ``rule``: "rel", "f32", "exact" or "ulp"
+        (see the tolerances above); ``bf16_values``: the (f32) output must
+        hold bf16 values;
         ``flipped_rows``: bool [rows] of the rows whose int8 input the
         LayerNorm flipped, left out of the "ulp" share.
         ``work``: the `roofline.Work` of one call.  ``library``: the one
@@ -462,28 +557,34 @@ class KernelTable:
               f" of it [{self.card}]", flush=True)
         check(ok, f"{kernel_name} disagrees with its plain version at {site}")
         self.rows.setdefault(kernel_name, []).append(
-            {"site": site, "shape": desc, "calls_per_request": calls,
+            {"model": model, "site": site, "shape": desc,
+             "calls_per_request": calls,
              "rule": rule, "max_abs_err": err, "beyond_one_ulp": off,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": work.bound_by(), "share_of_bound": bound_ms / ms,
              "library_ms": library_ms, "library_backend": backend, **extra})
 
     def summary(self, kernel_name) -> dict:
-        """Per request: the sum over the shapes of calls x time per call."""
+        """Per request of the SD-1.5 path: the sum over its shapes of calls
+        x time per call; ``by_model``: the same for each model's path."""
         rows = self.rows[kernel_name]
 
-        def per_request(key):
-            return sum(r["calls_per_request"] * r[key] for r in rows)
+        def per_request(model_rows):
+            top = max(model_rows, key=lambda r: (
+                r["calls_per_request"] * r["bound_ms"], r["bound_ms"]))
+            library = all(r["library_ms"] is not None for r in model_rows)
+            out = {key: sum(r["calls_per_request"] * r[key]
+                            for r in model_rows)
+                   for key in ("ms", "plain_ms", "bound_ms")}
+            out.update(bound_by=top["bound_by"], library_ms=sum(
+                r["calls_per_request"] * r["library_ms"] for r in model_rows)
+                if library else None)
+            return out
 
-        top = max(rows, key=lambda r: (r["calls_per_request"] * r["bound_ms"],
-                                       r["bound_ms"]))
-        library = all(r["library_ms"] is not None for r in rows)
+        by_model = {m: per_request([r for r in rows if r["model"] == m])
+                    for m in dict.fromkeys(r["model"] for r in rows)}
         return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": per_request("ms"), "plain_ms": per_request("plain_ms"),
-                "bound_ms": per_request("bound_ms"),
-                "bound_by": top["bound_by"],
-                "library_ms": per_request("library_ms") if library else None,
-                "shapes": rows}
+                **by_model["sd15"], "by_model": by_model, "shapes": rows}
 
 
 def compare_rows(site, xq, sx, want_xq, want_sx, ln: bool) -> str:
@@ -605,6 +706,11 @@ def check_int8_score_stages(fa, site, q, k, stages) -> None:
     check(all(same), f"{site}: int8 q/k or scales differ from the plain ones")
 
 
+def model_cases(kind: str):
+    """(model, *case) of every phase-2 case of ``kind``, in table order."""
+    return [(model, *case) for model, cases in CASES[kind] for case in cases]
+
+
 def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
                   quantize_conv_kernel_int8, table: KernelTable) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -612,54 +718,63 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
-    for site, (b, n, c), nkv, heads, kv_len, calls in ATTENTION_CASES:
-        q, k, v = (randn(*shape).bfloat16()
-                   for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
-        rows = nkv if kv_len is None else kv_len
-        qh, kh, vh = (sdpa_heads(x, heads, r)
-                      for x, r in ((q, n), (k, rows), (v, rows)))
-        table.measure(
-            "flash_attention_hd", site,
-            f"q {[b, n, c]} kv {nkv} heads {heads} d {c // heads} kv_len {kv_len}",
-            lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len),
-            lambda: fa.flash_attention_hd_reference(
-                q.float(), k.float(), v.float(), heads, kv_len=kv_len),
-            lambda: fa.flash_attention_hd_reference(q, k, v, heads,
-                                                    kv_len=kv_len), calls,
-            rl.flash_attention(b, n, rows, heads, c // heads),
-            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    for model, cases in CASES["attention"]:
+        for site, (b, n, c), nkv, heads, kv_len, calls in cases:
+            q, k, v = (randn(*shape).bfloat16()
+                       for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
+            rows = nkv if kv_len is None else kv_len
+            qh, kh, vh = (sdpa_heads(x, heads, r)
+                          for x, r in ((q, n), (k, rows), (v, rows)))
+            table.measure(
+                "flash_attention_hd", site,
+                f"q {[b, n, c]} kv {nkv} heads {heads} d {c // heads} kv_len"
+                f" {kv_len}",
+                lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len),
+                lambda: fa.flash_attention_hd_reference(
+                    q.float(), k.float(), v.float(), heads, kv_len=kv_len),
+                lambda: fa.flash_attention_hd_reference(q, k, v, heads,
+                                                        kv_len=kv_len),
+                calls, rl.flash_attention(b, n, rows, heads, c // heads),
+                library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                model=model)
 
-    for site, shape, heads, calls in PACKED_CASES:
-        qkv = randn(*shape).bfloat16()
-        b, n, c3 = shape
-        qh, kh, vh = (sdpa_heads(x, heads, n)
-                      for x in qkv.split(c3 // 3, dim=2))
-        table.measure(
-            "flash_attention_qkv_packed", site,
-            f"qkv {list(shape)} heads {heads} d {c3 // 3 // heads}",
-            lambda: fa.flash_attention_qkv_packed(qkv, heads),
-            lambda: fa.flash_attention_qkv_packed_reference(qkv.float(), heads),
-            lambda: fa.flash_attention_qkv_packed_reference(qkv, heads), calls,
-            rl.flash_attention(b, n, n, heads, c3 // 3 // heads),
-            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    for model, cases in CASES["packed"]:
+        for site, shape, heads, calls in cases:
+            qkv = randn(*shape).bfloat16()
+            b, n, c3 = shape
+            qh, kh, vh = (sdpa_heads(x, heads, n)
+                          for x in qkv.split(c3 // 3, dim=2))
+            table.measure(
+                "flash_attention_qkv_packed", site,
+                f"qkv {list(shape)} heads {heads} d {c3 // 3 // heads}",
+                lambda: fa.flash_attention_qkv_packed(qkv, heads),
+                lambda: fa.flash_attention_qkv_packed_reference(qkv.float(),
+                                                                heads),
+                lambda: fa.flash_attention_qkv_packed_reference(qkv, heads),
+                calls, rl.flash_attention(b, n, n, heads, c3 // 3 // heads),
+                library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                model=model)
 
-    for site, (b, n, c), nkv, heads, kv_len, calls in ATTENTION_CASES:
-        q, k, v = (randn(*shape)
-                   for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
-        rows = nkv if kv_len is None else kv_len
-        qh, kh, vh = (sdpa_heads(x, heads, r)
-                      for x, r in ((q, n), (k, rows), (v, rows)))
-        table.measure(
-            "flash_attention_hd_f32", site,
-            f"q {[b, n, c]} f32 kv {nkv} heads {heads} d {c // heads} kv_len"
-            f" {kv_len}",
-            lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len),
-            lambda: fa.flash_attention_hd_reference(q, k, v, heads,
-                                                    kv_len=kv_len),
-            lambda: fa.flash_attention_hd_reference(q, k, v, heads,
-                                                    kv_len=kv_len), calls,
-            rl.flash_attention_f32(b, n, rows, heads, c // heads), rule="f32",
-            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    for model, cases in CASES["attention_f32"]:
+        for site, (b, n, c), nkv, heads, kv_len, calls in cases:
+            q, k, v = (randn(*shape)
+                       for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
+            rows = nkv if kv_len is None else kv_len
+            qh, kh, vh = (sdpa_heads(x, heads, r)
+                          for x, r in ((q, n), (k, rows), (v, rows)))
+            table.measure(
+                "flash_attention_hd_f32", site,
+                f"q {[b, n, c]} f32 kv {nkv} heads {heads} d {c // heads}"
+                f" kv_len {kv_len}",
+                lambda: fa.flash_attention_hd(q, k, v, heads, kv_len=kv_len),
+                lambda: fa.flash_attention_hd_reference(q, k, v, heads,
+                                                        kv_len=kv_len),
+                lambda: fa.flash_attention_hd_reference(q, k, v, heads,
+                                                        kv_len=kv_len),
+                calls, rl.flash_attention_f32(b, n, rows, heads, c // heads),
+                rule="f32",
+                library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                model=model)
 
     for site, shape, heads, calls in PACKED_CASES:   # f32 --quant dense's
         qkv = randn(*shape)
@@ -696,7 +811,7 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
         wq, ws = quantize_kernel_int8(randn(n, k, scale=k ** -0.5))
         return wq, ws, randn(n, scale=0.1)
 
-    for site, (b, t, k), n, mode, calls in INT8_MATMUL_CASES:
+    for model, site, (b, t, k), n, mode, calls in model_cases("int8_matmul"):
         x = randn(b, t, k).to(dt)
         wq, ws, bias = weights(k, n)
         kw = dict(out)
@@ -714,21 +829,19 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
                               bias="bias" in kw, residual="residual" in kw,
                               affine=b if mode == "affine" else 0, act=act)
         xq = tk.int8_matmul_stages(x, wq, ws, **kw)[1].reshape(-1, k)
-        flipped = None
-        if mode == "ln" and not bf16:
-            flipped = flipped_rows(tk, x, xq, kw)
+        flipped = flipped_rows(tk, x, xq, kw) if mode == "ln" else None
         table.measure(
             "int8_matmul" + sfx, site, f"x {[b, t, k]} {dt} N {n} {mode}",
             lambda: tk.int8_matmul(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw),
             lambda: tk.int8_matmul_reference(x, wq, ws, **kw), calls, work,
             rule="ulp" if mode == "ln" else "exact", bf16_values=not bf16,
-            flipped_rows=flipped,
+            flipped_rows=flipped, model=model,
             others={"int8_product_cublaslt": lambda: torch._int_mm(
                 xq, wq.t())} if bf16 else None)
         check_matmul_stages(tk, site, x, wq, ws, kw)
 
-    for site, (b, t, c), calls in INT8_FF_CASES:
+    for model, site, (b, t, c), calls in model_cases("int8_ff"):
         x = randn(b, t, c).to(dt)
         w1q, w1s, b1 = weights(c, 8 * c)
         w2q, w2s, b2 = weights(4 * c, c)
@@ -738,7 +851,7 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
         args = (x, w1q, w1s, b1, w2q, w2s, b2)
         _, xq, _, _, hq, _ = tk.int8_ff_geglu_stages(*args, **kw)
         xq, hq = xq.reshape(-1, c), hq.reshape(-1, 4 * c)
-        flipped = None if bf16 else flipped_rows(tk, x, xq, kw)
+        flipped = flipped_rows(tk, x, xq, kw)
         table.measure(
             "int8_ff_geglu" + sfx, site,
             f"x {[b, t, c]} {dt} N {4 * c} O {c} ln res",
@@ -747,12 +860,13 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
             lambda: tk.int8_ff_geglu_reference(*args, **kw), calls,
             rl.int8_ff_geglu(b * t, c, act=act),
             rule="ulp", bf16_values=not bf16, flipped_rows=flipped,
-            others={"int8_product_cublaslt": lambda: (
+            model=model, others={"int8_product_cublaslt": lambda: (
                 torch._int_mm(xq, w1q.t()), torch._int_mm(hq, w2q.t()))}
             if bf16 else None)
         check_ff_stages(tk, site, args, kw)
 
-    for site, (b, h, w, c), o, gn, res, br, calls in CONV_CASES:
+    for model, site, (b, h, w, c), o, gn, res, br, calls in model_cases(
+            "conv"):
         check(not calls or (tc.scale_window_rows(h, w, c, o) == br
                             and tc.int8_conv3x3_supported((b, h, w, c),
                                                           (1, 1), 1, o)),
@@ -778,7 +892,7 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
             lambda: tc.int8_conv3x3_reference(x, wq, ws, **kw), calls,
             rl.int8_conv3x3(b, h, w, c, o, groupnorm=gn, residual=res,
                             act=act),
-            rule="ulp" if gn else "exact", bf16_values=not bf16,
+            rule="ulp" if gn else "exact", bf16_values=not bf16, model=model,
             others={"bf16_dequant_conv": lambda: torch.nn.functional.conv2d(
                 xc, wf, padding=1)} if bf16 else None)
         check_conv_stages(tc, site, x, wq, ws, kw)
@@ -786,7 +900,8 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
     # The int8-score attention, bf16 and f32, by "ulp" and as a bf16 write of
     # the plain version's unrounded f32 value (p bit-equal on both sides,
     # rounded to bf16 or not; the output rounded to bf16 on both sides).
-    for site, shape, heads, packed, calls in INT8_ATTENTION_CASES:
+    for model, site, shape, heads, packed, calls in model_cases(
+            "int8_attention"):
         if packed:
             qkv = randn(*shape).to(dt)
             q, k, v = qkv.split(shape[2] // 3, dim=2)
@@ -815,7 +930,7 @@ def int8_kernel_rows(fa, tk, tc, rl, quantize_kernel_int8,
                       plain, calls,
                       rl.flash_attention_int8(shape[0], shape[1], shape[1],
                                               heads, d, act=act),
-                      rule="ulp", bf16_values=not bf16,
+                      rule="ulp", bf16_values=not bf16, model=model,
                       others={("bf16" if bf16 else "f32") + "_kernel": exact})
         print(f"  {name + sfx} {site}: " + check_bf16_write(
             site, run(), fa.int8_score_attention_f32(
@@ -866,22 +981,23 @@ def check_int8_score_domain(fa, randn, dt) -> None:
               f"int8-score attention {site} {dt}: launches {delta}")
 
 
-def unet_inputs(engine):
+def unet_inputs(engine, resolution=RESOLUTION):
     gen = torch.Generator(device="cuda").manual_seed(1)
-    s = RESOLUTION // engine.bundle.vae_scale_factor
+    s = resolution // engine.bundle.vae_scale_factor
     z = torch.randn((2, s, s, 4), generator=gen, device="cuda")
     ctx = engine._text_embed_sd(engine.tokenize(["", PROMPTS[0]]))
     return z, ctx, torch.tensor(501, device="cuda")
 
 
-def phase_models_vs_plain_attention(engine, fa) -> None:
+def phase_models_vs_plain_attention(engine, fa,
+                                    resolution=RESOLUTION) -> None:
     """One UNet call (batch 2B = 2 at the slice's latent) and one VAE decode,
     each with the kernel and with the plain attention in its place."""
     from cfgpp_tpu_torch.models import attention
     from cfgpp_tpu_torch.models.unet import precompute_cross_kv
 
     unet, vae = engine.bundle.unet, engine.bundle.vae
-    z, ctx, t = unet_inputs(engine)
+    z, ctx, t = unet_inputs(engine, resolution)
 
     def run():
         with torch.inference_mode():
@@ -1014,13 +1130,13 @@ def plain_kernels(fa, tk, tc):
 
 
 def phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label: str,
-                             tol: float) -> None:
+                             tol: float, resolution=RESOLUTION) -> None:
     """One quantized UNet call with the kernels against the same modules with
     every kernel's plain version in its place."""
     from cfgpp_tpu_torch.models import unet as unet_mod
 
     unet = engine_q.bundle.unet
-    z, ctx, t = unet_inputs(engine_q)
+    z, ctx, t = unet_inputs(engine_q, resolution)
 
     def run():
         with torch.inference_mode():
@@ -1038,26 +1154,45 @@ def phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label: str,
     check(err <= tol, f"{label} unet eps: kernel path disagrees")
 
 
-def run_requests(engine, counters, card: str, label: str):
+def check_image(img, label: str, resolution: int) -> None:
+    check(img.dtype == torch.float32
+          and tuple(img.shape) == (1, resolution, resolution, 3),
+          f"{label}: image {tuple(img.shape)} {img.dtype}")
+    check(bool(torch.isfinite(img).all()), f"{label}: non-finite image")
+    check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+          f"{label}: image outside [0, 1]")
+
+
+def one_request(engine, prompt: str, counters, label: str,
+                resolution: int = RESOLUTION, **kw):
+    """One request of batch 1 through ``DiffusionEngine.sample``; returns
+    (image, trajectory or None, seconds, launches of each counter)."""
+    before = {name: read() for name, read in counters.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.sample(["", prompt], cfg_guidance=GUIDANCE, seed=SEED,
+                        resolution=resolution, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    img, traj = out if kw.get("return_trajectory") else (out, None)
+    check_image(img, label, resolution)
+    return img, traj, seconds, {name: read() - before[name]
+                                for name, read in counters.items()}
+
+
+def run_requests(engine, counters, card: str, label: str,
+                 resolution: int = RESOLUTION):
     """Three requests of batch 1; returns the launches of each counter per
-    request.  ``counters``: {kernel name: () -> current count}."""
-    images, seconds, counts = [], [], []
-    for prompt in (PROMPTS[0], PROMPTS[1], PROMPTS[0]):
-        before = {name: read() for name, read in counters.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = engine.sample(["", prompt], cfg_guidance=GUIDANCE, seed=SEED,
-                            resolution=RESOLUTION)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        counts.append({name: read() - before[name]
-                       for name, read in counters.items()})
-        check(img.dtype == torch.float32
-              and tuple(img.shape) == (1, RESOLUTION, RESOLUTION, 3),
-              f"{label}: image {tuple(img.shape)} {img.dtype}")
-        check(bool(torch.isfinite(img).all()), f"{label}: non-finite image")
-        check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
-              f"{label}: image outside [0, 1]")
+    request and the trajectory of the first.  ``counters``: {kernel name:
+    () -> current count}."""
+    images, seconds, counts, trajs = [], [], [], []
+    for i, prompt in enumerate((PROMPTS[0], PROMPTS[1], PROMPTS[0])):
+        img, traj, sec, n = one_request(engine, prompt, counters, label,
+                                        resolution,
+                                        return_trajectory=i == 0)
+        seconds.append(sec)
+        counts.append(n)
+        trajs.append(traj)
         images.append(engine._to_uint8(img).int())
     for i, (sec, n) in enumerate(zip(seconds, counts), 1):
         print(f"  {label} request {i}: {sec:.3f} s/image, launches {n}"
@@ -1069,7 +1204,7 @@ def run_requests(engine, counters, card: str, label: str):
     print(f"  {label}: images 1/2 differ; image 3 within {diff} level(s) of"
           f" image 1; peak device memory"
           f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return counts
+    return counts, trajs[0]
 
 
 def counters(fa, tk, tc):
@@ -1083,28 +1218,27 @@ def counters(fa, tk, tc):
 
 
 def phase_slice_requests(engine, fa, tk, tc, card: str, label: str,
-                         expected: dict) -> dict:
+                         expected: dict, resolution: int = RESOLUTION):
     """Three requests with every count set to 0 just before them; checks the
-    launches of each request and returns the counts of the whole run."""
+    launches of each request and returns the counts of the whole run and
+    the first request's trajectory."""
     reads = counters(fa, tk, tc)
     want = {name: expected.get(name, 0) for name in reads}
     torch.cuda.reset_peak_memory_stats()
     for mod in (fa, tk, tc):
         mod.reset_launches()
-    counts = run_requests(engine, reads, card, label)
+    counts, traj = run_requests(engine, reads, card, label, resolution)
     check(all(n == want for n in counts),
           f"{label}: launches per request {counts}, expected {want}")
-    return {name: read() for name, read in reads.items()}
+    return {name: read() for name, read in reads.items()}, traj
 
 
-def phase_quant_drift(engine, engine_q, label: str) -> float:
+def quant_drift(traj_e, traj_q, label: str) -> float:
     """``cfgpp_tpu/cli/parity_check.py:run_quant_drift``: per-step MAE of the
-    int8 trajectory against the exact one from the same zT, each normalized
-    by the exact step's mean magnitude; the worst must stay under 0.15."""
-    kw = dict(cfg_guidance=GUIDANCE, seed=SEED, resolution=RESOLUTION,
-              return_trajectory=True)
-    _, (z0_e, zt_e) = engine.sample(["", PROMPTS[0]], **kw)
-    _, (z0_q, zt_q) = engine_q.sample(["", PROMPTS[0]], **kw)
+    int8 trajectory against the exact one from the same zT (the same prompt
+    and seed), each normalized by the exact step's mean magnitude; the worst
+    must stay under 0.15."""
+    (z0_e, zt_e), (z0_q, zt_q) = traj_e, traj_q
     worst, worst_step = 0.0, -1
     for i in range(z0_e.shape[0]):
         for q, e in ((z0_q[i], z0_e[i]), (zt_q[i], zt_e[i])):
@@ -1191,19 +1325,19 @@ def phase_solver_loops() -> float:
     return worst
 
 
-def source_image(path: Path) -> np.ndarray:
-    """A 512^2 image made from the seed, written with save_image and read
-    back with load_image (the inversion CLI's reader): [1, H, W, 3] in
-    [-1, 1]."""
+def source_image(path: Path, resolution: int = RESOLUTION) -> np.ndarray:
+    """An image of ``resolution``^2 made from the seed, written with
+    save_image and read back with load_image (the inversion CLI's reader):
+    [1, H, W, 3] in [-1, 1]."""
     from cfgpp_tpu_torch.utils.img import load_image, save_image, to_uint8
 
     low = torch.rand((1, 3, 8, 8), generator=torch.Generator().manual_seed(SEED))
-    img = F.interpolate(low, size=(RESOLUTION, RESOLUTION), mode="bicubic",
+    img = F.interpolate(low, size=(resolution, resolution), mode="bicubic",
                         align_corners=False).clamp(0.0, 1.0)
     img = img.permute(0, 2, 3, 1).numpy()
     save_image(img, path)
-    arr = load_image(path, size=RESOLUTION, centered=True)
-    check(arr.shape == (1, RESOLUTION, RESOLUTION, 3)
+    arr = load_image(path, size=resolution, centered=True)
+    check(arr.shape == (1, resolution, resolution, 3)
           and np.array_equal(arr, to_uint8(img) / np.float32(127.5) - 1.0),
           "source image: load_image does not read back what save_image wrote")
     return arr
@@ -1247,17 +1381,15 @@ def phase_solver_requests(bundle, fa, tk, tc, src: np.ndarray,
         print(f"  {label} (w={guidance_of(engine.spec)}):"
               f" {seconds[label]:.3f} s/image, flash_attention_hd launches"
               f" {counts['flash_attention_hd']} [{card}]", flush=True)
-        check(img.dtype == torch.float32
-              and tuple(img.shape) == (1, RESOLUTION, RESOLUTION, 3),
-              f"{label}: image {tuple(img.shape)} {img.dtype}")
-        check(bool(torch.isfinite(img).all()), f"{label}: non-finite image")
-        check(img.min().item() >= 0.0 and img.max().item() <= 1.0,
-              f"{label}: image outside [0, 1]")
+        check_image(img, label, RESOLUTION)
         check(counts == want, f"{label}: launches {counts}, expected {want}")
     return seconds
 
 
-def phase_first_steps(bundle, fa, src: np.ndarray) -> None:
+def phase_first_steps(bundle, fa, src: np.ndarray,
+                      names=SAMPLING_SOLVERS + ("ddim_inversion",
+                                                "ddim_inversion_cfg++"),
+                      resolution: int = RESOLUTION) -> None:
     """The first step of every new solver and of the inversion in both
     forms, with the kernel and with the plain attention in its place, from
     the same zT (or encoded latent) and noise: the eps pair of the step's
@@ -1273,7 +1405,7 @@ def phase_first_steps(bundle, fa, src: np.ndarray) -> None:
     from cfgpp_tpu_torch.models import attention
     from cfgpp_tpu_torch.solvers import sampler, steps
 
-    for name in SAMPLING_SOLVERS + ("ddim_inversion", "ddim_inversion_cfg++"):
+    for name in names:
         engine = DiffusionEngine(bundle, name, nfe=NFE)
         spec, w = engine.spec, guidance_of(engine.spec)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1284,7 +1416,7 @@ def phase_first_steps(bundle, fa, src: np.ndarray) -> None:
                 z = engine._encode(torch.from_numpy(src).cuda(), gen)
             else:
                 z = sampler.init_latent(engine.plan, gen,
-                                        engine.latent_shape(1, RESOLUTION))
+                                        engine.latent_shape(1, resolution))
             noise = torch.randn(z.shape, generator=gen, device="cuda")
 
         def run():
@@ -1343,6 +1475,85 @@ def phase_solvers(bundle, fa, tk, tc, card: str) -> dict:
     print(f"  phase 7 wall time {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
     return seconds
+
+
+def phase_sd2(fa, tk, tc, card: str):
+    """sd21_v (SD-2.1 widths and depth, v-prediction) at 768^2 through
+    ``DiffusionEngine.sample``: one UNet call and one VAE decode against the
+    plain attention, the first ``ddim_cfg++`` step against the plain
+    attention (the v -> eps boundary on the card), three exact requests,
+    one ``--quant dense`` and one ``--quant all`` request (each with its
+    UNet call against every kernel's plain version and its quant drift
+    against the first exact request), and one ``ddim_inversion_cfg++``
+    request of a 768^2 image; every count set to 0 just before each run.
+    Returns (the launches of each run under "sd21_v <form>", the quant
+    drift of each int8 form)."""
+    import tempfile
+
+    from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+
+    res, want = SD2_RESOLUTION, SD2_LAUNCHES_PER_REQUEST
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random_init("sd21_v", seed=0, dtype=torch.bfloat16,
+                                     device="cuda")
+    engine = DiffusionEngine(bundle, "ddim_cfg++", nfe=NFE)
+    torch.cuda.synchronize()
+    cfg = bundle.config
+    check(cfg.unet.prediction_type == "v_prediction"
+          and cfg.unet.use_linear_projection and engine._abar is not None
+          and engine._abar.device.type == "cuda", "sd21_v: not the v-"
+          "prediction linear-projection bundle")
+    print(f"  random sd21_v bundle on the card in"
+          f" {time.perf_counter() - t0:.2f} s", flush=True)
+    phase_models_vs_plain_attention(engine, fa, res)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = source_image(Path(tmp) / "source.png", res)
+    phase_first_steps(bundle, fa, src, ("ddim_cfg++",), res)
+
+    reads = counters(fa, tk, tc)
+    launches, seconds = {}, {}
+    runs = {"exact": phase_slice_requests(
+        engine, fa, tk, tc, card, "sd21_v exact", want["exact"], res)}
+    launches["sd21_v exact"], traj_e = runs["exact"]
+    drift = {}
+    for mode, tol in (("dense", INT8_MODEL_REL_L2_TOL),
+                      ("all", INT8_ALL_MODEL_REL_L2_TOL)):
+        label = f"sd21_v --quant {mode}"
+        engine_q = DiffusionEngine(bundle.quantized(mode), "ddim_cfg++",
+                                   nfe=NFE)
+        phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label, tol, res)
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        _, traj_q, seconds[mode], n = one_request(
+            engine_q, PROMPTS[0], reads, label, res, return_trajectory=True)
+        expect = {name: want[mode].get(name, 0) for name in reads}
+        print(f"  {label}: {seconds[mode]:.3f} s/image, launches {n}; peak"
+              f" device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB [{card}]", flush=True)
+        check(n == expect, f"{label}: launches {n}, expected {expect}")
+        launches[f"sd21_v {mode}"] = n
+        drift[f"sd21_v {mode}"] = quant_drift(traj_e, traj_q, label)
+        del engine_q
+        torch.cuda.empty_cache()
+
+    label = "sd21_v ddim_inversion_cfg++"
+    inv = DiffusionEngine(bundle, "ddim_inversion_cfg++", nfe=NFE)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, tk, tc):
+        mod.reset_launches()
+    _, _, seconds["inversion"], n = one_request(inv, PROMPTS[0], reads, label,
+                                                res, src_img=src)
+    expect = {name: want["inversion"].get(name, 0) for name in reads}
+    print(f"  {label}: {seconds['inversion']:.3f} s/image, launches {n};"
+          f" peak device memory"
+          f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    check(n == expect, f"{label}: launches {n}, expected {expect}")
+    launches["sd21_v inversion"] = n
+    del inv, engine, bundle
+    torch.cuda.empty_cache()
+    return launches, drift
 
 
 # name: (source, the TPU kernel it replaces, the path whose run counts its
@@ -1431,17 +1642,18 @@ def main() -> None:
     print(f"  random sd15 bundle on the card in {time.perf_counter() - t0:.2f} s",
           flush=True)
     phase_models_vs_plain_attention(engine, fa)
-    launches = {"exact": phase_slice_requests(
+    launches = {}
+    launches["exact"], traj_e = phase_slice_requests(
         engine, fa, tk, tc, card, "exact",
-        {"flash_attention_hd": LAUNCHES_PER_REQUEST})}
+        {"flash_attention_hd": LAUNCHES_PER_REQUEST})
     print("phase 3 ok: SD-1.5 ddim_cfg++ exact slice, 3 requests", flush=True)
 
     engine_q = DiffusionEngine(bundle.quantized("dense"), "ddim_cfg++", nfe=NFE)
     phase_int8_unet_vs_plain(engine_q, fa, tk, tc, "int8",
                              INT8_MODEL_REL_L2_TOL)
-    launches["dense"] = phase_slice_requests(
+    launches["dense"], traj_q = phase_slice_requests(
         engine_q, fa, tk, tc, card, "int8", INT8_LAUNCHES_PER_REQUEST)
-    drift = {"dense": phase_quant_drift(engine, engine_q, "int8")}
+    drift = {"dense": quant_drift(traj_e, traj_q, "int8")}
     print("phase 4 ok: SD-1.5 ddim_cfg++ int8 (--quant dense) slice, 3 requests",
           flush=True)
     del engine_q
@@ -1450,12 +1662,12 @@ def main() -> None:
     engine_a = DiffusionEngine(bundle.quantized("all"), "ddim_cfg++", nfe=NFE)
     phase_int8_unet_vs_plain(engine_a, fa, tk, tc, "int8-all",
                              INT8_ALL_MODEL_REL_L2_TOL)
-    launches["all"] = phase_slice_requests(
+    launches["all"], traj_q = phase_slice_requests(
         engine_a, fa, tk, tc, card, "int8-all", ALL_LAUNCHES_PER_REQUEST)
-    drift["all"] = phase_quant_drift(engine, engine_a, "int8-all")
+    drift["all"] = quant_drift(traj_e, traj_q, "int8-all")
     print("phase 5 ok: SD-1.5 ddim_cfg++ int8-all (--quant all) slice,"
           " 3 requests", flush=True)
-    del engine_a, engine
+    del engine_a, engine, traj_e, traj_q
     torch.cuda.empty_cache()
 
     launches["f32"] = phase_f32(fa, tk, tc, card)
@@ -1469,6 +1681,14 @@ def main() -> None:
     del bundle
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    sd2_launches, sd2_drift = phase_sd2(fa, tk, tc, card)
+    launches.update(sd2_launches)
+    drift.update(sd2_drift)
+    print(f"phase 8 ok: sd21_v at {SD2_RESOLUTION}^2, 3 exact, 1 --quant"
+          " dense, 1 --quant all and 1 ddim_inversion_cfg++ request in"
+          f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
         summary = table.summary(name)
@@ -1479,9 +1699,11 @@ def main() -> None:
             "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"],
             "library_ms": summary["library_ms"],
-            "ms_per": "request: sum over the shapes of calls per request"
-                      " (in the slice that runs each) x time per call; the"
-                      " same for plain_ms, bound_ms and library_ms",
+            "ms_per": "SD-1.5 request: sum over its shapes of calls per"
+                      " request (in the slice that runs each) x time per"
+                      " call; the same for plain_ms, bound_ms and"
+                      " library_ms; by_model: the same per model's request",
+            "by_model": summary["by_model"],
             "launches_by_path": {path: n[name] for path, n in launches.items()
                                  if name in n},
             "shapes": summary["shapes"]})
