@@ -1,7 +1,9 @@
 """Shared CLI plumbing: bundle construction + engine creation.
 
-Counterpart of ``cfgpp_tpu/cli/common.py`` for the models the port runs.
-Weights are seeded random (``--ckpt_dir`` comes with ``from_pretrained``).
+Counterpart of ``cfgpp_tpu/cli/common.py`` for the models the port runs
+(``sdxl_lightning`` comes with ``--light_ckpt``).  Weights are seeded random
+(``--ckpt_dir`` comes with ``from_pretrained``).  ``--method`` takes the
+solvers of the chosen model's family (`parse_args` checks it).
 """
 
 from __future__ import annotations
@@ -10,10 +12,13 @@ import argparse
 
 import torch
 
+from cfgpp_tpu_torch.configs import get_bundle_config
 from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
 from cfgpp_tpu_torch.solvers.registry import list_solvers
 
-MODELS = ("sd15", "sd20", "sd21", "sd21_v", "tiny_sd")   # the JAX SD_MODELS
+SD_MODELS = ("sd15", "sd20", "sd21", "sd21_v", "tiny_sd")   # the JAX SD_MODELS
+SDXL_MODELS = ("sdxl", "tiny_sdxl")
+MODELS = SD_MODELS + SDXL_MODELS
 
 # Reference default negative prompt (examples/text_to_img.py:17).
 DEFAULT_NULL_PROMPT = ("low quality,jpeg artifacts,blurry,poorly drawn,ugly,"
@@ -29,7 +34,9 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
     parser.add_argument("--prompt", type=str, default="")
     parser.add_argument("--cfg_guidance", type=float, default=7.5)
     parser.add_argument("--method", type=str, default=default_method,
-                        choices=list_solvers("sd"))
+                        help="a solver of the model's family: sd "
+                             f"{list_solvers('sd')}; sdxl "
+                             f"{list_solvers('sdxl')}")
     parser.add_argument("--model", type=str, default="sd15", choices=MODELS)
     parser.add_argument("--NFE", type=int, default=default_nfe)
     parser.add_argument("--seed", type=int, default=42)
@@ -47,6 +54,17 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
                              "int8 matmul kernels; 'all' also the resnet "
                              "and upsampler convs (int8_conv3x3) and the "
                              "self-attention score")
+
+
+def parse_args(parser: argparse.ArgumentParser, argv=None):
+    """``parser.parse_args``, then ``--method`` checked against the solvers
+    of ``--model``'s family."""
+    args = parser.parse_args(argv)
+    family = get_bundle_config(args.model).family
+    if args.method not in list_solvers(family):
+        parser.error(f"argument --method: {args.method!r} is no {family} "
+                     f"solver (choose from {list_solvers(family)})")
+    return args
 
 
 def build_engine(args) -> DiffusionEngine:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from cfgpp_tpu_torch.cli.common import add_common_args, build_engine
+from cfgpp_tpu_torch.cli.common import add_common_args, build_engine, parse_args
 from cfgpp_tpu_torch.utils.img import load_image, save_image
 
 
@@ -28,7 +28,7 @@ def main(argv=None):
                              "negative-prompt inversion (cond prompt as "
                              "null, w=1; latent_diffusion.py:195-197)")
     parser.set_defaults(null_prompt="")
-    args = parser.parse_args(argv)
+    args = parse_args(parser, argv)
 
     workdir = Path(args.workdir or "workdir/inversion")
     img = load_image(args.img_path, size=args.img_size, centered=True)

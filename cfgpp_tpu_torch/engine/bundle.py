@@ -7,7 +7,9 @@ parameters live in the `nn.Module`s.  Dtype policy, as in the JAX bundle:
 * UNet: parameters and compute in ``dtype`` (bf16 on the card);
 * VAE: f32 parameters; decode computes in bf16 unless ``dtype`` is f32
   (``cfgpp_tpu/engine/bundle.py:96-105``), with f32 GroupNorm statistics;
-* CLIP text encoder: f32 (``bundle.py:107``).
+* CLIP text encoder: f32 (``bundle.py:107``); SDXL's second one
+  (``text_encoder_2``, with its projection) f32 too, and its tokenizer pads
+  with id 0, not EOS (``bundle.py:112-119``).
 
 Bundles come from `random_init` (seeded random weights; benchmarks and the
 chip smoke run) or `from_flax` (the JAX package's parameter trees, through
@@ -86,6 +88,8 @@ class ModelBundle:
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: Any
+    text_encoder_2: Optional[CLIPTextModel] = None
+    tokenizer_2: Any = None
 
     @property
     def family(self) -> str:
@@ -109,33 +113,46 @@ class ModelBundle:
         """Modules with uninitialized parameters on ``device``."""
         cfg = (get_bundle_config(config_or_name)
                if isinstance(config_or_name, str) else config_or_name)
-        if cfg.family != "sd":
+        if cfg.family not in ("sd", "sdxl"):
             raise ValueError(f"the PyTorch port covers the sd family (SD-1.5 "
-                             f"and SD-2.x); got {cfg.name} ({cfg.family})")
+                             f"and SD-2.x) and sdxl; got {cfg.name} "
+                             f"({cfg.family})")
+        if cfg.family == "sdxl" and cfg.text_encoder_2 is None:
+            raise ValueError(f"{cfg.name}: an sdxl bundle needs text_encoder_2")
         vae_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
         with torch.device("meta"):
             unet = UNet2DConditionModel(cfg.unet)
             vae = AutoencoderKL(cfg.vae, compute_dtype=vae_dtype)
             text = CLIPTextModel(cfg.text_encoder)
+            text2 = (CLIPTextModel(cfg.text_encoder_2)
+                     if cfg.family == "sdxl" else None)
         tok = load_tokenizer(tokenizer_dir, vocab_size=cfg.text_encoder.vocab_size,
                              eos_token_id=cfg.text_encoder.eos_token_id)
+        tok2 = None
+        if text2 is not None:
+            text2 = _frozen(text2.to_empty(device=device))
+            tok2 = load_tokenizer(
+                tokenizer_dir, vocab_size=cfg.text_encoder_2.vocab_size,
+                eos_token_id=cfg.text_encoder_2.eos_token_id, pad_token_id=0)
         return cls(config=cfg,
                    unet=_frozen(unet.to_empty(device=device).to(dtype)),
                    vae=_frozen(vae.to_empty(device=device)),
                    text_encoder=_frozen(text.to_empty(device=device)),
-                   tokenizer=tok)
+                   tokenizer=tok, text_encoder_2=text2, tokenizer_2=tok2)
 
     @classmethod
     def random_init(cls, config_or_name, seed: int, dtype: torch.dtype,
                     device: Device,
                     tokenizer_dir: Optional[str] = None) -> "ModelBundle":
         """Seeded random weights, drawn on ``device`` from one generator
-        (UNet, then VAE, then text encoder)."""
+        (UNet, then VAE, then text encoder, then SDXL's second one)."""
         dev = _device(device)
         bundle = cls._empty(config_or_name, dtype, dev, tokenizer_dir)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for m in (bundle.unet, bundle.vae, bundle.text_encoder):
-            _random_init_(m, gen)
+        for m in (bundle.unet, bundle.vae, bundle.text_encoder,
+                  bundle.text_encoder_2):
+            if m is not None:
+                _random_init_(m, gen)
         return bundle
 
     @classmethod
@@ -144,15 +161,18 @@ class ModelBundle:
                   tokenizer_dir: Optional[str] = None,
                   quant: Optional[str] = None) -> "ModelBundle":
         """Load the JAX package's ``ModelBundle.params()`` trees ({"unet",
-        "vae", "text"}; array-likes) strictly into the port's modules.
-        ``quant``: the mode of a quantized UNet tree (the JAX package's
-        ``quantized(mode).params()``)."""
+        "vae", "text"} and, for sdxl, "text2"; array-likes) strictly into the
+        port's modules.  ``quant``: the mode of a quantized UNet tree (the
+        JAX package's ``quantized(mode).params()``)."""
         bundle = cls._empty(config_or_name, dtype, _device(device), tokenizer_dir)
         if quant is not None:
             quantized_structure_(bundle.unet, quant)
         bundle.unet.load_state_dict(diffusers_state_dict(params["unet"]))
         bundle.vae.load_state_dict(diffusers_state_dict(params["vae"]))
         bundle.text_encoder.load_state_dict(clip_text_state_dict(params["text"]))
+        if bundle.text_encoder_2 is not None:
+            bundle.text_encoder_2.load_state_dict(
+                clip_text_state_dict(params["text2"]))
         return bundle
 
     def quantized(self, mode: str = "dense") -> "ModelBundle":
@@ -160,6 +180,6 @@ class ModelBundle:
         (``cfgpp_tpu/engine/bundle.py:quantized``); this bundle keeps its
         exact UNet.  ``mode="dense"``: the transformer projections;
         ``mode="all"``: also the resnet and upsampler convs and the
-        self-attention score."""
+        self-attention score.  Both text encoders are shared."""
         unet = quantize_unet_(copy.deepcopy(self.unet), mode)
         return dataclasses.replace(self, unet=unet)

@@ -1,18 +1,24 @@
-"""DiffusionEngine for the SD family, counterpart of
+"""DiffusionEngine for the SD and SDXL families, counterpart of
 ``cfgpp_tpu/engine/pipeline.py``.
 
 One request: tokenize (host) -> CLIP text encode -> the solver loop, with
 cond and uncond fused into one batch-2B UNet call and the cross-attention
 k/v hoisted out of the loop -> per-image VAE decode -> float32 NHWC images
 in [0, 1].  Inversion and edit solvers start the loop from a zT that a DDIM
-inversion loop makes from the VAE-encoded source image.  PyTorch runs eagerly, so there is no compile cache: the JAX
-engine's jit per (solver, NFE, resolution, batch, guidance mode) becomes a
-plain call.
+inversion loop makes from the VAE-encoded source image.  PyTorch runs
+eagerly, so there is no compile cache: the JAX engine's jit per (solver,
+NFE, resolution, batch, guidance mode) becomes a plain call.
+
+SDXL (``latent_sdxl.py:96-128,187-198``): two text encoders, whose
+penultimate (or ``clip_skip``-chosen) hidden states are concatenated into
+the context; encoder 2's projected pooled output and the 6 micro-
+conditioning ids (``make_add_time_ids``) are the UNet's added conditioning,
+fused into the batch-2B pair as the context is.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +78,10 @@ class DiffusionEngine:
         ids = self.bundle.tokenizer(list(prompts))
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
 
+    def tokenize_2(self, prompts: Sequence[str]) -> torch.Tensor:
+        ids = self.bundle.tokenizer_2(list(prompts))
+        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
     def default_resolution(self) -> int:
         return self.bundle.config.default_resolution
 
@@ -79,16 +89,60 @@ class DiffusionEngine:
         s = resolution // self.bundle.vae_scale_factor
         return (batch, s, s, self.bundle.latent_channels)
 
+    def make_add_time_ids(self, batch: int,
+                          original_size: Tuple[int, int],
+                          crops_coords_top_left: Tuple[int, int],
+                          target_size: Tuple[int, int]) -> np.ndarray:
+        """latent_sdxl.py:187-198 incl. the add_embedding width validation."""
+        ids = list(original_size) + list(crops_coords_top_left) + list(target_size)
+        cfg = self.bundle.config.unet
+        expected = cfg.projection_class_embeddings_input_dim
+        passed = cfg.addition_time_embed_dim * len(ids) + \
+            self.bundle.config.text_encoder_2.projection_dim
+        if expected != passed:
+            raise ValueError(
+                f"Model expects an added time embedding vector of length {expected}, "
+                f"but a vector of {passed} was created.")
+        return np.tile(np.asarray(ids, np.float32)[None], (batch, 1))
+
     # ------------------------------------------------------------- embedding
     def _text_embed_sd(self, ids: torch.Tensor) -> torch.Tensor:
         return self.bundle.text_encoder(ids).last_hidden_state
 
+    def _text_embed_sdxl(self, ids1: torch.Tensor, ids2: torch.Tensor,
+                         clip_skip: Optional[int] = None):
+        """Dual-encoder embed (latent_sdxl.py:96-128): penultimate (or
+        clip_skip-selected) hidden states concatenated on the feature dim;
+        pooled ALWAYS from encoder-2."""
+        o1 = self.bundle.text_encoder(ids1, clip_skip)
+        o2 = self.bundle.text_encoder_2(ids2, clip_skip)
+        embeds = torch.cat([o1.penultimate_hidden_state,
+                            o2.penultimate_hidden_state], dim=-1)
+        return embeds, o2.pooled_output
+
+    def text_embed(self, prompts: Sequence[str],
+                   prompts_2: Optional[Sequence[str]] = None,
+                   clip_skip: Optional[int] = None):
+        """(context, pooled) of a batch of prompts: pooled is None for the
+        SD family; SDXL's encoder 2 reads ``prompts_2`` (default: the same
+        prompts)."""
+        if self.bundle.family != "sdxl":
+            return self._text_embed_sd(self.tokenize(prompts)), None
+        return self._text_embed_sdxl(
+            self.tokenize(prompts),
+            self.tokenize_2(prompts if prompts_2 is None else prompts_2),
+            clip_skip)
+
     # ------------------------------------------------------------ eps closure
     def _make_eps_fn(self, uc: torch.Tensor, c: torch.Tensor, w: float,
+                     added_uc: Optional[Tuple] = None,
+                     added_c: Optional[Tuple] = None,
                      mode: Optional[Tuple[bool, bool]] = None):
         """Batched cond/uncond epsilon function ``eps_fn(z, t) -> (eps_uc,
-        eps_c)``.  The cross-attention k/v depend only on the text context,
-        so they are computed once here rather than in every UNet call.  A
+        eps_c)``.  ``added_uc``/``added_c``: SDXL's (pooled text embeds,
+        time ids) of each branch, concatenated into the pair as the context
+        is.  The cross-attention k/v depend only on the text context, so
+        they are computed once here rather than in every UNet call.  A
         v-prediction UNet's output becomes eps at this boundary, in f32
         (``cfgpp_tpu/engine/pipeline.py:135-140``): ``eps = sqrt(abar_t) v
         + sqrt(1 - abar_t) z``, so every solver, the inversion and the edit
@@ -97,8 +151,8 @@ class DiffusionEngine:
         needs_uc, needs_c = mode if mode is not None else _needs_branches(
             self.spec.cfgpp, float(w))
 
-        def apply(z, t, ctx, ckv):
-            out = unet(z, t, ctx, cross_kv=ckv)
+        def apply(z, t, ctx, added, ckv):
+            out = unet(z, t, ctx, *(added or ()), cross_kv=ckv)
             if self._abar is None:
                 return out
             a = self._abar[torch.as_tensor(t, device=z.device).long().clamp(
@@ -108,19 +162,24 @@ class DiffusionEngine:
 
         if needs_uc and needs_c:
             ctx = torch.cat([uc, c], dim=0)
+            added = None
+            if added_uc is not None:
+                added = tuple(torch.cat([a, b], dim=0)
+                              for a, b in zip(added_uc, added_c))
             ckv = precompute_cross_kv(unet, ctx)
 
             def eps_fn(z, t):
                 b = z.shape[0]
-                out = apply(torch.cat([z, z], dim=0), t, ctx, ckv)
+                out = apply(torch.cat([z, z], dim=0), t, ctx, added, ckv)
                 return out[:b], out[b:]
             return eps_fn
 
         ctx = uc if needs_uc else c
+        added = added_uc if needs_uc else added_c
         ckv = precompute_cross_kv(unet, ctx)
 
         def eps_fn(z, t):
-            out = apply(z, t, ctx, ckv)
+            out = apply(z, t, ctx, added, ckv)
             return out, out
         return eps_fn
 
@@ -167,12 +226,23 @@ class DiffusionEngine:
         latent_init: Optional[str] = None,
         src_latent_override=None,
         noise_override=None,
+        prompt_2: Optional[Sequence] = None,
+        original_size: Optional[Tuple[int, int]] = None,
+        crops_coords_top_left: Tuple[int, int] = (0, 0),
+        target_size: Optional[Tuple[int, int]] = None,
+        clip_skip: Optional[int] = None,
     ):
         """Generate images.  ``prompt`` is [null, cond], or [null, src, tgt]
         for edit solvers; each conditional entry may be a list of B strings,
         run as one batch.  Returns float32 NHWC images in [0, 1] on the
         bundle's device, and with ``return_trajectory`` also the per-step
         (z0t, zt), each stacked to [n_steps, B, h, w, 4].
+
+        SDXL only: ``prompt_2`` (laid out as ``prompt``) feeds encoder 2
+        (default: ``prompt``); ``original_size`` and ``target_size``
+        (default: (resolution, resolution)) and ``crops_coords_top_left``
+        are the micro-conditioning; ``clip_skip`` moves both encoders' tap
+        (refused for the SD family, whose context is the last layer).
 
         Inversion solvers need ``src_img`` ([B, H, W, 3] in [-1, 1]): it is
         VAE-encoded, inverted to zT with the source prompt and resampled
@@ -187,6 +257,13 @@ class DiffusionEngine:
         ``init_latent_override`` (zT, [B, h, w, 4]), ``noise_override`` (the
         per-step noise, [n_steps, B, h, w, 4]) and ``src_latent_override``
         (the encoded source latent, [B, h, w, 4])."""
+        sdxl = self.bundle.family == "sdxl"
+        if clip_skip is not None and not sdxl:
+            # the reference supports clip_skip only on the SDXL dual-encoder
+            # path (latent_sdxl.py:88-92)
+            raise ValueError("clip_skip is an SDXL-only option "
+                             "(latent_sdxl.py:88-92); the SD family always "
+                             "uses the final layer")
         if latent_init not in (None, "ddim", "npi"):
             raise ValueError(f"unknown latent_init {latent_init!r}")
         if latent_init == "npi" and not self.spec.inversion:
@@ -194,10 +271,14 @@ class DiffusionEngine:
         conds = prompt[1:3] if self.spec.edit else prompt[1:2]
         batch = max(len(p) if isinstance(p, (list, tuple)) else 1
                     for p in conds)
-        slots = [list(p) if isinstance(p, (list, tuple)) else [p] * batch
-                 for p in conds]
-        if any(len(s) != batch for s in slots):
-            raise ValueError("prompt lists must share one batch size")
+        slots = self._slots(conds, batch, "prompt lists must share one batch "
+                            "size")
+        null_2, slots_2 = prompt[0], slots
+        if prompt_2 is not None:
+            null_2 = prompt_2[0]
+            slots_2 = self._slots(
+                prompt_2[1:3] if self.spec.edit else prompt_2[1:2], batch,
+                "prompt_2 lists must share the prompt batch size")
         src = None
         if self.spec.inversion:
             if src_img is None:
@@ -206,13 +287,27 @@ class DiffusionEngine:
             if src.shape[0] != batch:
                 raise ValueError(f"{src.shape[0]} src imgs vs batch {batch}")
         res = resolution or self.default_resolution()
+        time_ids = None
+        if sdxl:
+            time_ids = torch.as_tensor(self.make_add_time_ids(
+                batch, original_size or (res, res), crops_coords_top_left,
+                target_size or (res, res)), device=self.device)
 
-        uc = self._text_embed_sd(self.tokenize([prompt[0]] * batch))
-        cs = [self._text_embed_sd(self.tokenize(s)) for s in slots]
+        uc, pool_uc = self.text_embed([prompt[0]] * batch, [null_2] * batch,
+                                      clip_skip)
+        cs, pool_cs = zip(*(self.text_embed(s, s2, clip_skip)
+                            for s, s2 in zip(slots, slots_2)))
+
+        def added_for(pool_uc, pool_c):
+            if not sdxl:
+                return None, None
+            return (pool_uc, time_ids), (pool_c, time_ids)
+
         mode = _needs_branches(self.spec.cfgpp, float(cfg_guidance))
         # edit solvers invert with the source prompt (cs[0]) and sample with
         # the target (cs[-1]); the others have one prompt for both
-        eps_fn = self._make_eps_fn(uc, cs[-1], cfg_guidance, mode=mode)
+        eps_fn = self._make_eps_fn(uc, cs[-1], cfg_guidance,
+                                   *added_for(pool_uc, pool_cs[-1]), mode=mode)
 
         if self.spec.inversion:
             if src_latent_override is not None:
@@ -221,12 +316,15 @@ class DiffusionEngine:
                 gen = torch.Generator(device=self.device).manual_seed(
                     _stream_seed(seed, 2))
                 z0 = self._encode(src, gen)
+            added_uc_inv, added_c_inv = added_for(pool_uc, pool_cs[0])
             if latent_init == "npi":
-                inv_eps = self._make_eps_fn(cs[0], cs[0], 1.0,
-                                            mode=(True, False))
+                inv_eps = self._make_eps_fn(cs[0], cs[0], 1.0, added_c_inv,
+                                            added_c_inv, mode=(True, False))
                 zT = run_inversion(self.spec, self.inv_plan, inv_eps, z0, 1.0)
             else:
-                inv_eps = self._make_eps_fn(uc, cs[0], cfg_guidance, mode=mode)
+                inv_eps = self._make_eps_fn(uc, cs[0], cfg_guidance,
+                                            added_uc_inv, added_c_inv,
+                                            mode=mode)
                 zT = run_inversion(self.spec, self.inv_plan, inv_eps, z0,
                                    cfg_guidance)
         elif init_latent_override is not None:
@@ -242,6 +340,15 @@ class DiffusionEngine:
                                  return_trajectory=return_trajectory)
         img = self._decode(final)
         return (img, traj) if return_trajectory else img
+
+    @staticmethod
+    def _slots(conds, batch: int, error: str) -> List[List[str]]:
+        """Each conditional entry as a list of ``batch`` prompts."""
+        slots = [list(p) if isinstance(p, (list, tuple)) else [p] * batch
+                 for p in conds]
+        if any(len(s) != batch for s in slots):
+            raise ValueError(error)
+        return slots
 
     def _noise_fn(self, seed: int, zT: torch.Tensor, noise_override):
         """The ancestral solvers' ``noise_fn(i, like)``: step i's draw from

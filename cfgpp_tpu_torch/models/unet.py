@@ -1,4 +1,4 @@
-"""UNet2DConditionModel, SD-1.5 and SD-2.x layouts; counterpart of
+"""UNet2DConditionModel, SD-1.5, SD-2.x and SDXL layouts; counterpart of
 ``cfgpp_tpu/models/unet.py``.
 
 Module names follow the diffusers state-dict layout.  The public layout is
@@ -23,8 +23,12 @@ linear proj_out the transformer's input as its fused residual.
 ``mode="all"`` also swaps the resnet convs and the upsampler conv, and the
 resnet folds each GroupNorm + SiLU into its conv's prologue, the time
 embedding into norm2's coefficients and the skip add into conv2's
-epilogue).  SDXL's added text/time embedding is rejected, not
-approximated.
+epilogue).  SDXL's ``text_time`` added embedding
+(``cfgpp_tpu/models/unet.py:414-427``): the 6 micro-conditioning ids each
+embedded sinusoidally, flattened and concatenated in f32 after the pooled
+text embeds, cast to the UNet's dtype and run through ``add_embedding``,
+whose output is added to the time embedding.  It stays exact under
+``--quant``, as in the JAX tree.
 """
 
 from __future__ import annotations
@@ -254,14 +258,18 @@ class UNet2DConditionModel(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.addition_embed_type is not None:
-            raise ValueError("the PyTorch port covers the SD-1.5 and SD-2.x "
-                             "UNet layouts (no added text/time embedding)")
+        if cfg.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}"
+                             ": the port covers None (SD) and 'text_time' "
+                             "(SDXL)")
         self.config = cfg
         b0 = cfg.block_out_channels[0]
         temb = cfg.time_embed_dim
         self.conv_in = Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(b0, temb)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb)
 
         def resnet(i, o):
             return ResnetBlock2D(i, o, temb, cfg.norm_num_groups, cfg.norm_eps)
@@ -331,9 +339,13 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
+                added_text_embeds: Optional[torch.Tensor] = None,
+                added_time_ids: Optional[torch.Tensor] = None,
                 cross_kv: Optional[CrossKV] = None) -> torch.Tensor:
         """``cross_kv``: {site: [(k, v) per layer]} from `precompute_cross_kv`;
-        each cross-attention site then skips its to_k/to_v projections."""
+        each cross-attention site then skips its to_k/to_v projections.
+        SDXL: ``added_text_embeds`` [B, pooled dim] (encoder 2's projected
+        pooled output) and ``added_time_ids`` [B, 6]."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         b = sample.shape[0]
@@ -341,6 +353,15 @@ class UNet2DConditionModel(nn.Module):
         emb = self.time_embedding(sinusoidal_time_embed(
             t, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
             cfg.freq_shift).to(dtype))
+        if cfg.addition_embed_type == "text_time":
+            if added_text_embeds is None or added_time_ids is None:
+                raise ValueError("SDXL UNet requires added_text_embeds and "
+                                 "added_time_ids")
+            ids = sinusoidal_time_embed(
+                added_time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                cfg.flip_sin_to_cos, cfg.freq_shift).reshape(b, -1)
+            add_in = torch.cat([added_text_embeds.float(), ids], dim=-1)
+            emb = emb + self.add_embedding(add_in.to(dtype))
         context = encoder_hidden_states.to(dtype)
         kv_len = context.shape[1]
 

@@ -18,6 +18,7 @@ from cfgpp_tpu_torch.schedules.karras import (
     calculate_input_scale,
     get_ancestral_step,
     get_sigmas_karras,
+    sigma_to_t_linear,
     timestep_log_nearest,
 )
 
@@ -224,4 +225,50 @@ def _plan_2m_from_sigmas(sigmas, n, t_model, c_in, init_scale) -> SolverPlan:
         init_scale=init_scale,
         needs_noise=False,
         final="x",
+    )
+
+
+# ---------------------------------------------------------------------------
+# SDXL's VP-native sigma plans.  Reference: latent_sdxl.py:776-777, 860-930.
+# ---------------------------------------------------------------------------
+
+def plan_dpmpp_2m_vp_sdxl(schedule: DDIMSchedule) -> SolverPlan:
+    """SDXL `dpm++_2m_cfgpp`: VP-native sigmas from the DDIM timesteps.
+
+    latent_sdxl.py:860-930 — sigmas come from the (prepended) alpha table at
+    the scheduler timesteps, NO appended zero, and the loop runs
+    `timesteps[:-1]` (n-1 steps).  x initialises to randn * sigmas[0], and
+    the model t is the LINEAR-sigma quantized lookup (sigma_to_t).
+    """
+    ts = schedule.timesteps
+    alphas = schedule.alphas_ext[ts]                      # latent_sdxl.py:878
+    sigmas = np.sqrt((1.0 - alphas) / alphas)
+    total_sigmas = schedule.sigmas_ve
+    n = len(ts) - 1                                       # loops timesteps[:-1]
+    t_model = sigma_to_t_linear(sigmas[:n], total_sigmas, quantize=True)
+    c_in = np.sqrt(alphas[:n])                            # latent_sdxl.py:895
+    return _plan_2m_from_sigmas(sigmas, n, t_model, c_in,
+                                init_scale=float(sigmas[0]))
+
+
+def plan_euler_vp_sigmas_sdxl(schedule: DDIMSchedule) -> SolverPlan:
+    """SDXL `euler_cfg++`: sigmas from actual DDIM timesteps (latent_sdxl.py:776-777)."""
+    total_sigmas = schedule.sigmas_ve
+    log_sigmas = np.log(total_sigmas)
+    ts = schedule.timesteps
+    sigmas = np.concatenate([total_sigmas[ts], [0.0]])
+    n = len(ts)
+    sig, sig_next = sigmas[:n], sigmas[1 : n + 1]
+    return SolverPlan(
+        n_steps=n,
+        coeffs=_f32(
+            t=timestep_log_nearest(sig, log_sigmas),
+            sigma=sig,
+            sigma_next=sig_next,
+            c_in=calculate_input_scale(sig),
+        ),
+        init="ve_scaled",
+        init_scale=float(np.sqrt(sigmas[0] ** 2 + 1.0)),
+        needs_noise=False,
+        final="z0",
     )

@@ -1,9 +1,12 @@
 """Solver registry, counterpart of ``cfgpp_tpu/solvers/registry.py``.
 
-A name -> spec table of the reference's SD solver factory
-(`latent_diffusion.py:13-26`).  A spec is declarative: which coefficient
-plan, which step kind, CFG vs CFG++, inversion/edit orchestration.  The
-port carries the SD family; the SDXL table comes with the SDXL models.
+Name -> spec tables of the reference's two solver factories
+(`latent_diffusion.py:13-26`, `latent_sdxl.py:15-28`).  A spec is
+declarative: which coefficient plan, which step kind, CFG vs CFG++,
+inversion/edit orchestration.  The SDXL table holds the 7 solvers that are
+not Lightning; the 5 ``*_lightning`` names (``cfgpp_tpu/solvers/
+registry.py:70-78``) come with SDXL-Lightning's checkpoint loader, and
+asking for one raises.
 """
 
 from __future__ import annotations
@@ -33,14 +36,18 @@ class SolverSpec:
 
 
 _SD: Dict[str, SolverSpec] = {}
+_SDXL: Dict[str, SolverSpec] = {}
 
 
-def _sd(name: str, **kw) -> None:
-    if name in _SD:
-        raise ValueError(f"Solver {name} already registered.")
-    _SD[name] = SolverSpec(name=name, family="sd", **kw)
+def _reg(table: Dict[str, SolverSpec], family: str):
+    def add(name: str, **kw):
+        if name in table:
+            raise ValueError(f"Solver {name} already registered.")
+        table[name] = SolverSpec(name=name, family=family, **kw)
+    return add
 
 
+_sd = _reg(_SD, "sd")
 _sd("ddim",                kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=False)
 _sd("euler",               kind="euler",   plan_fn=plans.plan_euler,             cfgpp=False)
 _sd("euler_a",             kind="euler_a", plan_fn=plans.plan_euler_ancestral,   cfgpp=False)
@@ -56,19 +63,46 @@ _sd("dpm++_2m_cfg++",      kind="dpm2m",   plan_fn=plans.plan_dpmpp_2m,         
 _sd("ddim_inversion_cfg++", kind="ddim",   plan_fn=plans.plan_ddim,              cfgpp=True, inversion=True)
 _sd("ddim_edit_cfg++",     kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=True, inversion=True, edit=True)
 
-# The SDXL name of the same solver (the reference's naming differs between
-# the two families: SD `dpm++_2m_cfg++`, SDXL `dpm++_2m_cfgpp`).
+_sx = _reg(_SDXL, "sdxl")
+_sx("ddim",                kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=False)
+_sx("euler",               kind="euler",   plan_fn=plans.plan_euler,             cfgpp=False)
+_sx("ddim_edit",           kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=False, inversion=True, edit=True)
+_sx("ddim_cfg++",          kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=True)
+_sx("euler_cfg++",         kind="euler",   plan_fn=plans.plan_euler_vp_sigmas_sdxl, cfgpp=True)
+_sx("dpm++_2m_cfgpp",      kind="dpm2m",   plan_fn=plans.plan_dpmpp_2m_vp_sdxl,  cfgpp=True, diff_cfgpp_uses_uncond=True)
+_sx("ddim_edit_cfg++",     kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=True, inversion=True, edit=True)
+
+# The reference names the same solver `dpm++_2m_cfg++` (SD) and
+# `dpm++_2m_cfgpp` (SDXL); each table takes both names.
 _SD["dpm++_2m_cfgpp"] = _SD["dpm++_2m_cfg++"]
+_SDXL["dpm++_2m_cfg++"] = _SDXL["dpm++_2m_cfgpp"]
+
+# SDXL-Lightning's solvers, not in the port yet.
+LIGHTNING_SOLVERS = ("ddim_lightning", "euler_lightning",
+                     "euler_cfg++_lightning", "ddim_cfg++_lightning",
+                     "dpm++_2m_cfgpp_lightning")
+
+_TABLES = {"sd": _SD, "sdxl": _SDXL}
+
+
+def _table(family: str) -> Dict[str, SolverSpec]:
+    if family not in _TABLES:
+        raise ValueError(f"unknown model family {family!r}; the port has "
+                         f"{sorted(_TABLES)}")
+    return _TABLES[family]
 
 
 def get_solver_spec(name: str, family: str = "sd") -> SolverSpec:
-    if family != "sd" or name not in _SD:
+    table = _table(family)
+    if family == "sdxl" and name in LIGHTNING_SOLVERS:
+        raise ValueError(f"Solver {name} is an SDXL-Lightning solver: the "
+                         "PyTorch port has no Lightning solvers yet (they come "
+                         "with --light_ckpt, ROADMAP item 1.4)")
+    if name not in table:
         raise ValueError(f"Solver {name} does not exist for family {family!r} "
-                         f"in the PyTorch port. Available: sd {list_solvers()}")
-    return _SD[name]
+                         f"in the PyTorch port. Available: {list_solvers(family)}")
+    return table[name]
 
 
 def list_solvers(family: str = "sd"):
-    if family != "sd":
-        raise ValueError(f"the PyTorch port has no {family!r} solvers yet")
-    return sorted(set(_SD))
+    return sorted(set(_table(family)))

@@ -148,7 +148,7 @@ def model_calls(cs, setups, card, rounds) -> dict:
     bundle = ModelBundle.random_init("sd15", seed=0, dtype=torch.float32,
                                      device="cuda")
     engine = DiffusionEngine(bundle, "ddim_cfg++", nfe=cs.NFE)
-    z, ctx, t = cs.unet_inputs(engine)
+    z, ctx, t, _ = cs.unet_inputs(engine)
     gen = torch.Generator(device="cuda").manual_seed(2)
     img = torch.rand((1, cs.RESOLUTION, cs.RESOLUTION, 3), generator=gen,
                      device="cuda") * 2.0 - 1.0

@@ -8,9 +8,11 @@ a synchronize; median and range of s/image), then one request under
 ``torch.profiler``: the device time summed over its device events (kernels,
 copies, memsets), the busy share (that sum over the median s/image) and the
 kernels that took the most of it, by name.  Random weights from seed 0,
-``ddim_cfg++`` at lambda=0.6, 50 NFE, batch 1, bf16, the model's default
-resolution; cuDNN and cuBLAS TF32 off, as ``chip_smoke.py`` runs them.
-Prints the card's name and power limit, then one JSON line per form.
+batch 1, bf16, the model's default resolution, the family's op-point:
+``ddim_cfg++`` at lambda=0.6, 50 NFE for the SD models, ``dpm++_2m_cfgpp``
+at w=5, 25 NFE for SDXL (``bench.py:72``); cuDNN and cuBLAS TF32 off, as
+``chip_smoke.py`` runs them.  Prints the card's name and power limit, then
+one JSON line per form.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import time
 import torch
 
 PROMPT = "a photograph of an astronaut riding a horse"
-NFE = 50
 FORMS = ("exact", "dense", "all")
 REQUESTS = 3
+# family: (solver, NFE, guidance)
+OP_POINTS = {"sd": ("ddim_cfg++", 50, 0.6), "sdxl": ("dpm++_2m_cfgpp", 25, 5.0)}
 
 
 def card() -> str:
@@ -36,22 +39,22 @@ def card() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def one(engine, res: int) -> float:
+def one(engine, res: int, w: float) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.sample(["", PROMPT], cfg_guidance=0.6, seed=42, resolution=res)
+    engine.sample(["", PROMPT], cfg_guidance=w, seed=42, resolution=res)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def device_split(engine, res: int, top: int = 12) -> dict:
+def device_split(engine, res: int, w: float, top: int = 12) -> dict:
     """Device seconds of one profiled request, in all and by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        one(engine, res)
+        one(engine, res, w)
     by_name = collections.Counter()
     events = 0
     for e in prof.events():
@@ -77,16 +80,18 @@ def main(argv=None) -> None:
     bundle = ModelBundle.random_init(args.model, seed=0, dtype=torch.bfloat16,
                                      device="cuda")
     res = bundle.config.default_resolution
+    solver, nfe, w = OP_POINTS[bundle.family]
     for form in FORMS:
         b = bundle if form == "exact" else bundle.quantized(form)
-        engine = DiffusionEngine(b, "ddim_cfg++", nfe=NFE)
-        one(engine, res)
-        secs = [one(engine, res) for _ in range(REQUESTS)]
+        engine = DiffusionEngine(b, solver, nfe=nfe)
+        one(engine, res, w)
+        secs = [one(engine, res, w) for _ in range(REQUESTS)]
         med = statistics.median(secs)
-        split = device_split(engine, res)
+        split = device_split(engine, res, w)
         print(json.dumps({
             "model": args.model, "form": form, "resolution": res,
-            "nfe": NFE, "tf32": False, "card": name,
+            "solver": solver, "nfe": nfe, "guidance": w, "tf32": False,
+            "card": name,
             "s_per_image": secs, "median_s": med,
             "busy_share": split["device_s"] / med, **split}), flush=True)
         del engine, b

@@ -24,8 +24,13 @@ Phases, one status line each; any failure exits non-zero:
    with 5/10/20/20 heads, the cross k/v from a 1024-wide context, the VAE's
    d=512 attention at 9216 tokens in bf16 and in f32, proj_in's affine
    prologue, the one 768^2 conv int8_conv3x3_supported admits and the
-   level-1 int8 score).  Each model's rows keep their own per-request
-   sums.  The int8
+   level-1 int8 score); then at SDXL's 1024^2 shapes (phase 9's path: head
+   dim 64 at 4096 tokens with 10 heads and 1024 with 20, the cross k/v from
+   a 2048-wide context, the VAE's d=512 attention at 16384 tokens in bf16
+   and in f32, the int8 matmuls and feed-forwards at 640 and 1280
+   channels, the 16 distinct shapes of the 35 admitted 3x3 convs, 128-wide
+   latent rows among them, and the int8 score at both levels).  Each
+   model's rows keep their own per-request sums.  The int8
    kernels are also held stage by stage: their int8 rows (conv: windows,
    attention: q and k) and scales against the plain quantizers, the
    feed-forward's f32 hidden state and its requantize, and each GEMM and
@@ -88,9 +93,19 @@ Phases, one status line each; any failure exits non-zero:
    exactly, its quant drift against the first exact request < 0.15) and
    one ``ddim_inversion_cfg++`` request of a 768^2 image made from the
    seed; s/image and peak device memory of each.
-9. summary: a JSON line of the kernels (``launches_by_path`` with the
-   sd21_v runs; ``by_model``: each model's per-request sums), then the
-   result line ``{"ok": true, "device": {...}}``.
+9. SDXL: ``sdxl`` (SDXL base widths and depth: the dual CLIP, the
+   text_time added embedding, 10-block transformer stacks) at 1024^2,
+   random weights from seed 0, bf16, the JAX bench's op-point
+   ``dpm++_2m_cfgpp`` at w=5, 25 NFE (24 UNet calls), batch 1, after the
+   sd21_v bundle is freed: phase 8's checks in the same order (UNet call
+   and VAE decode, the first step, three exact requests, one ``--quant
+   dense`` and one ``--quant all`` request with their UNet calls against
+   the plain kernels and their drift), then one ``ddim_edit_cfg++``
+   request (lambda=0.6, 25 NFE) of a 1024^2 image made from the seed.
+10. summary: the run's wall time, a JSON line of the kernels
+   (``launches_by_path`` with the sd21_v and sdxl runs; ``by_model``: each
+   model's per-request sums), then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
 exits non-zero.
@@ -382,18 +397,131 @@ SD2_CONV_CASES = [("sd21_v up_blocks.2 upsampler", (2, 96, 96, 640), 640,
                    False, False, 8, NFE)]
 SD2_INT8_ATTENTION_CASES = [("sd21_v L1 self packed", (2, 2304, 3 * 640), 10,
                              True, 5 * NFE)]
+# Phase 9: SDXL (stabilityai/stable-diffusion-xl-base-1.0 widths and depth)
+# at 1024^2, the JAX bench's op-point (bench.py:72): dpm++_2m_cfgpp at w=5,
+# 25 NFE, which loops timesteps[:-1]: 24 UNet calls a request.  The UNet has
+# 70 transformer blocks in 11 transformers (level 1: 2 down + 3 up
+# transformers of 2 blocks; level 2: 2 down + 3 up + the mid of 10 blocks;
+# level 0 has none), so 140 attention sites a call, head dim 64 everywhere,
+# and a 2048-wide cross context.  --quant dense: per call 4 int8_matmuls a
+# block and proj_in/proj_out a transformer (302), the cross k/v of every
+# block once a request.  --quant all adds the 11 conv_shortcut 1x1
+# int8_matmuls a call, the 35 of 36 3x3 convs that int8_conv3x3_supported
+# admits (all but down_blocks.1's first conv1, c*o 320*640 at 64^2), and
+# every self-attention on the int8-score kernel (4096 and 1024 tokens are
+# one TPU kv block each).  ddim_edit_cfg++ at 25 NFE: 25 inversion and 25
+# sampling calls, the bf16 decode and the f32 encode (flash_attention_hd
+# counts both dtypes).  tests/test_torch_port_sdxl_sites.py derives these
+# from the JAX predicates.
+SDXL_RESOLUTION = 1024
+SDXL_NFE = 25
+SDXL_GUIDANCE = 5.0
+SDXL_SOLVER = "dpm++_2m_cfgpp"
+SDXL_EDIT_SOLVER, SDXL_EDIT_GUIDANCE = "ddim_edit_cfg++", GUIDANCE
+SDXL_CALLS = SDXL_NFE - 1
+SDXL_BLOCKS, SDXL_TRANSFORMERS = 70, 11
+SDXL_SITES_PER_CALL = 2 * SDXL_BLOCKS
+SDXL_DENSE_MATMULS = 4 * SDXL_BLOCKS + 2 * SDXL_TRANSFORMERS
+SDXL_LAUNCHES_PER_REQUEST = {
+    "exact": {"flash_attention_hd": SDXL_SITES_PER_CALL * SDXL_CALLS + 1},
+    "dense": {"int8_matmul": SDXL_DENSE_MATMULS * SDXL_CALLS + 2 * SDXL_BLOCKS,
+              "int8_ff_geglu": SDXL_BLOCKS * SDXL_CALLS,
+              "flash_attention_qkv_packed": SDXL_BLOCKS * SDXL_CALLS,
+              "flash_attention_hd": SDXL_BLOCKS * SDXL_CALLS + 1},
+    "all": {"int8_matmul": (SDXL_DENSE_MATMULS + 11) * SDXL_CALLS
+            + 2 * SDXL_BLOCKS,
+            "int8_ff_geglu": SDXL_BLOCKS * SDXL_CALLS,
+            "int8_conv3x3": 35 * SDXL_CALLS,
+            "flash_attention_qkv_packed_int8": SDXL_BLOCKS * SDXL_CALLS,
+            "flash_attention_hd": SDXL_BLOCKS * SDXL_CALLS + 1},
+    "edit": {"flash_attention_hd": SDXL_SITES_PER_CALL * 2 * SDXL_NFE + 2},
+}
+# The same kernels at SDXL's 1024^2 shapes: (level, tokens per image,
+# channels, heads, transformer blocks, transformers).  Calls per request as
+# for sd21_v: exact for the bf16 attention, dense for the packed and int8
+# rows, all for the conv and the int8 score, the edit's encode for the f32
+# attention.
+SDXL_LEVELS = [("L1", 4096, 640, 10, 10, 5), ("L2", 1024, 1280, 20, 60, 6)]
+SDXL_ATTENTION_CASES = [
+    case for lvl, n, c, h, blocks, _ in SDXL_LEVELS for case in (
+        (f"sdxl {lvl} self", (2, n, c), n, h, None, blocks * SDXL_CALLS),
+        (f"sdxl {lvl} cross", (2, n, c), 77, h, None, blocks * SDXL_CALLS))
+] + [("sdxl vae mid self", (1, 16384, 512), 16384, 1, None, 1)]
+SDXL_F32_ATTENTION_CASES = [
+    ("sdxl vae mid self (the edit's f32 encode)", (1, 16384, 512), 16384, 1,
+     None, 1)]
+SDXL_PACKED_CASES = [(f"sdxl {lvl} self packed", (2, n, 3 * c), h,
+                      blocks * SDXL_CALLS)
+                     for lvl, n, c, h, blocks, _ in SDXL_LEVELS]
+SDXL_INT8_MATMUL_CASES = [
+    case for lvl, n, c, _, blocks, trs in SDXL_LEVELS for case in (
+        (f"sdxl {lvl} to_qkv", (2, n, c), 3 * c, "ln", blocks * SDXL_CALLS),
+        (f"sdxl {lvl} to_q", (2, n, c), c, "ln", blocks * SDXL_CALLS),
+        (f"sdxl {lvl} attn1/attn2 to_out, proj_out", (2, n, c), c, "bias_res",
+         (2 * blocks + trs) * SDXL_CALLS),
+        (f"sdxl {lvl} proj_in (GroupNorm as the affine prologue)", (2, n, c),
+         c, "affine", trs * SDXL_CALLS))
+] + [(f"sdxl {lvl} cross k/v", (2, 77, 2048), c, "none", 2 * blocks)
+     for lvl, _, c, _, blocks, _ in SDXL_LEVELS]
+SDXL_INT8_FF_CASES = [(f"sdxl {lvl} ff", (2, n, c), blocks * SDXL_CALLS)
+                      for lvl, n, c, _, blocks, _ in SDXL_LEVELS]
+# (site, x shape NHWC, O, GroupNorm prologue, residual, br, calls per UNet
+# call) of the 35 admitted 3x3 convs: resnet conv1 (prologue), conv2
+# (prologue and the skip add as its residual) and the upsamplers.
+SDXL_CONV_SITES = [
+    ("down_blocks.0 resnets conv1", (2, 128, 128, 320), 320, True, False, 8, 2),
+    ("down_blocks.0 / up_blocks.2 resnets conv2", (2, 128, 128, 320), 320,
+     True, True, 8, 5),
+    ("up_blocks.1 upsampler", (2, 128, 128, 640), 640, False, False, 4, 1),
+    ("up_blocks.2 resnets.1-2 conv1", (2, 128, 128, 640), 320, True, False, 4,
+     2),
+    ("up_blocks.2 resnets.0 conv1", (2, 128, 128, 960), 320, True, False, 4,
+     1),
+    ("down_blocks.1 resnets.1 conv1", (2, 64, 64, 640), 640, True, False, 8,
+     1),
+    ("down_blocks.1 / up_blocks.1 resnets conv2", (2, 64, 64, 640), 640, True,
+     True, 8, 5),
+    ("up_blocks.1 resnets.2 conv1", (2, 64, 64, 960), 640, True, False, 8, 1),
+    ("up_blocks.1 resnets.1 conv1", (2, 64, 64, 1280), 640, True, False, 8,
+     1),
+    ("up_blocks.0 upsampler", (2, 64, 64, 1280), 1280, False, False, 8, 1),
+    ("up_blocks.1 resnets.0 conv1", (2, 64, 64, 1920), 640, True, False, 8,
+     1),
+    ("down_blocks.2 resnets.0 conv1", (2, 32, 32, 640), 1280, True, False, 32,
+     1),
+    ("down_blocks.2 resnets.1 / mid conv1", (2, 32, 32, 1280), 1280, True,
+     False, 16, 3),
+    ("down_blocks.2 / mid / up_blocks.0 resnets conv2", (2, 32, 32, 1280),
+     1280, True, True, 16, 7),
+    ("up_blocks.0 resnets.2 conv1", (2, 32, 32, 1920), 1280, True, False, 8,
+     1),
+    ("up_blocks.0 resnets.0-1 conv1", (2, 32, 32, 2560), 1280, True, False, 8,
+     2),
+]
+SDXL_CONV_CASES = [(f"sdxl {site}", shape, o, gn, res, br, n * SDXL_CALLS)
+                   for site, shape, o, gn, res, br, n in SDXL_CONV_SITES]
+SDXL_INT8_ATTENTION_CASES = [
+    (f"sdxl {lvl} self packed", (2, n, 3 * c), h, True, blocks * SDXL_CALLS)
+    for lvl, n, c, h, blocks, _ in SDXL_LEVELS]
 # Each kind of phase-2 row: (model, its cases) in table order.
 CASES = {
-    "attention": (("sd15", ATTENTION_CASES), ("sd21_v", SD2_ATTENTION_CASES)),
+    "attention": (("sd15", ATTENTION_CASES), ("sd21_v", SD2_ATTENTION_CASES),
+                  ("sdxl", SDXL_ATTENTION_CASES)),
     "attention_f32": (("sd15", ATTENTION_CASES),
-                      ("sd21_v", SD2_F32_ATTENTION_CASES)),
-    "packed": (("sd15", PACKED_CASES), ("sd21_v", SD2_PACKED_CASES)),
+                      ("sd21_v", SD2_F32_ATTENTION_CASES),
+                      ("sdxl", SDXL_F32_ATTENTION_CASES)),
+    "packed": (("sd15", PACKED_CASES), ("sd21_v", SD2_PACKED_CASES),
+               ("sdxl", SDXL_PACKED_CASES)),
     "int8_matmul": (("sd15", INT8_MATMUL_CASES),
-                    ("sd21_v", SD2_INT8_MATMUL_CASES)),
-    "int8_ff": (("sd15", INT8_FF_CASES), ("sd21_v", SD2_INT8_FF_CASES)),
-    "conv": (("sd15", CONV_CASES), ("sd21_v", SD2_CONV_CASES)),
+                    ("sd21_v", SD2_INT8_MATMUL_CASES),
+                    ("sdxl", SDXL_INT8_MATMUL_CASES)),
+    "int8_ff": (("sd15", INT8_FF_CASES), ("sd21_v", SD2_INT8_FF_CASES),
+                ("sdxl", SDXL_INT8_FF_CASES)),
+    "conv": (("sd15", CONV_CASES), ("sd21_v", SD2_CONV_CASES),
+             ("sdxl", SDXL_CONV_CASES)),
     "int8_attention": (("sd15", INT8_ATTENTION_CASES),
-                       ("sd21_v", SD2_INT8_ATTENTION_CASES)),
+                       ("sd21_v", SD2_INT8_ATTENTION_CASES),
+                       ("sdxl", SDXL_INT8_ATTENTION_CASES)),
 }
 
 def fail(msg: str) -> None:
@@ -981,12 +1109,25 @@ def check_int8_score_domain(fa, randn, dt) -> None:
               f"int8-score attention {site} {dt}: launches {delta}")
 
 
+def conditioning(engine, prompts, resolution=RESOLUTION):
+    """(context, added) of a batch of prompts: added is () for the SD
+    family, SDXL's (pooled text embeds, time ids at the default micro-
+    conditioning) otherwise; a UNet call takes ``unet(z, t, ctx, *added)``."""
+    ctx, pooled = engine.text_embed(prompts)
+    if pooled is None:
+        return ctx, ()
+    size = (resolution, resolution)
+    ids = engine.make_add_time_ids(len(prompts), size, (0, 0), size)
+    return ctx, (pooled, torch.as_tensor(ids, device="cuda"))
+
+
 def unet_inputs(engine, resolution=RESOLUTION):
+    """(z, ctx, t, added) of one batch-2B UNet call."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     s = resolution // engine.bundle.vae_scale_factor
     z = torch.randn((2, s, s, 4), generator=gen, device="cuda")
-    ctx = engine._text_embed_sd(engine.tokenize(["", PROMPTS[0]]))
-    return z, ctx, torch.tensor(501, device="cuda")
+    ctx, added = conditioning(engine, ["", PROMPTS[0]], resolution)
+    return z, ctx, torch.tensor(501, device="cuda"), added
 
 
 def phase_models_vs_plain_attention(engine, fa,
@@ -997,11 +1138,12 @@ def phase_models_vs_plain_attention(engine, fa,
     from cfgpp_tpu_torch.models.unet import precompute_cross_kv
 
     unet, vae = engine.bundle.unet, engine.bundle.vae
-    z, ctx, t = unet_inputs(engine, resolution)
+    z, ctx, t, added = unet_inputs(engine, resolution)
 
     def run():
         with torch.inference_mode():
-            eps = unet(z, t, ctx, cross_kv=precompute_cross_kv(unet, ctx))
+            eps = unet(z, t, ctx, *added,
+                       cross_kv=precompute_cross_kv(unet, ctx))
             img = vae.decode(z[:1] * 3.0)
         return eps, img
 
@@ -1033,7 +1175,7 @@ def phase_f32(fa, tk, tc, card: str) -> dict:
                                      device="cuda")
     engine = DiffusionEngine(bundle, "ddim_cfg++", nfe=NFE)
     unet, vae = bundle.unet, bundle.vae
-    z, ctx, t = unet_inputs(engine)
+    z, ctx, t, _ = unet_inputs(engine)
     check(z.dtype == ctx.dtype == torch.float32, "f32 bundle: inputs not f32")
     gen = torch.Generator(device="cuda").manual_seed(2)
     img = torch.rand((1, RESOLUTION, RESOLUTION, 3), generator=gen,
@@ -1136,11 +1278,11 @@ def phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label: str,
     from cfgpp_tpu_torch.models import unet as unet_mod
 
     unet = engine_q.bundle.unet
-    z, ctx, t = unet_inputs(engine_q, resolution)
+    z, ctx, t, added = unet_inputs(engine_q, resolution)
 
     def run():
         with torch.inference_mode():
-            return unet(z, t, ctx,
+            return unet(z, t, ctx, *added,
                         cross_kv=unet_mod.precompute_cross_kv(unet, ctx))
 
     eps_k = run()
@@ -1163,14 +1305,18 @@ def check_image(img, label: str, resolution: int) -> None:
           f"{label}: image outside [0, 1]")
 
 
-def one_request(engine, prompt: str, counters, label: str,
-                resolution: int = RESOLUTION, **kw):
+def one_request(engine, prompt, counters, label: str,
+                resolution: int = RESOLUTION, guidance: float = GUIDANCE,
+                **kw):
     """One request of batch 1 through ``DiffusionEngine.sample``; returns
-    (image, trajectory or None, seconds, launches of each counter)."""
+    (image, trajectory or None, seconds, launches of each counter).
+    ``prompt``: the conditional prompt, or the list [null, src, tgt] of an
+    edit request."""
     before = {name: read() for name, read in counters.items()}
+    prompts = prompt if isinstance(prompt, list) else ["", prompt]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.sample(["", prompt], cfg_guidance=GUIDANCE, seed=SEED,
+    out = engine.sample(prompts, cfg_guidance=guidance, seed=SEED,
                         resolution=resolution, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1181,14 +1327,14 @@ def one_request(engine, prompt: str, counters, label: str,
 
 
 def run_requests(engine, counters, card: str, label: str,
-                 resolution: int = RESOLUTION):
+                 resolution: int = RESOLUTION, guidance: float = GUIDANCE):
     """Three requests of batch 1; returns the launches of each counter per
     request and the trajectory of the first.  ``counters``: {kernel name:
     () -> current count}."""
     images, seconds, counts, trajs = [], [], [], []
     for i, prompt in enumerate((PROMPTS[0], PROMPTS[1], PROMPTS[0])):
         img, traj, sec, n = one_request(engine, prompt, counters, label,
-                                        resolution,
+                                        resolution, guidance,
                                         return_trajectory=i == 0)
         seconds.append(sec)
         counts.append(n)
@@ -1218,7 +1364,8 @@ def counters(fa, tk, tc):
 
 
 def phase_slice_requests(engine, fa, tk, tc, card: str, label: str,
-                         expected: dict, resolution: int = RESOLUTION):
+                         expected: dict, resolution: int = RESOLUTION,
+                         guidance: float = GUIDANCE):
     """Three requests with every count set to 0 just before them; checks the
     launches of each request and returns the counts of the whole run and
     the first request's trajectory."""
@@ -1227,7 +1374,8 @@ def phase_slice_requests(engine, fa, tk, tc, card: str, label: str,
     torch.cuda.reset_peak_memory_stats()
     for mod in (fa, tk, tc):
         mod.reset_launches()
-    counts, traj = run_requests(engine, reads, card, label, resolution)
+    counts, traj = run_requests(engine, reads, card, label, resolution,
+                                guidance)
     check(all(n == want for n in counts),
           f"{label}: launches per request {counts}, expected {want}")
     return {name: read() for name, read in reads.items()}, traj
@@ -1389,7 +1537,8 @@ def phase_solver_requests(bundle, fa, tk, tc, src: np.ndarray,
 def phase_first_steps(bundle, fa, src: np.ndarray,
                       names=SAMPLING_SOLVERS + ("ddim_inversion",
                                                 "ddim_inversion_cfg++"),
-                      resolution: int = RESOLUTION) -> None:
+                      resolution: int = RESOLUTION, nfe: int = NFE,
+                      guidance=guidance_of) -> None:
     """The first step of every new solver and of the inversion in both
     forms, with the kernel and with the plain attention in its place, from
     the same zT (or encoded latent) and noise: the eps pair of the step's
@@ -1406,12 +1555,12 @@ def phase_first_steps(bundle, fa, src: np.ndarray,
     from cfgpp_tpu_torch.solvers import sampler, steps
 
     for name in names:
-        engine = DiffusionEngine(bundle, name, nfe=NFE)
-        spec, w = engine.spec, guidance_of(engine.spec)
+        engine = DiffusionEngine(bundle, name, nfe=nfe)
+        spec, w = engine.spec, guidance(engine.spec)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         with torch.inference_mode():
-            uc = engine._text_embed_sd(engine.tokenize([""]))
-            c = engine._text_embed_sd(engine.tokenize([PROMPTS[0]]))
+            uc, added_uc = conditioning(engine, [""], resolution)
+            c, added_c = conditioning(engine, [PROMPTS[0]], resolution)
             if spec.inversion:
                 z = engine._encode(torch.from_numpy(src).cuda(), gen)
             else:
@@ -1427,7 +1576,8 @@ def phase_first_steps(bundle, fa, src: np.ndarray,
                 return eps_pairs[-1]
 
             with torch.inference_mode():
-                unet_eps = engine._make_eps_fn(uc, c, w)
+                unet_eps = engine._make_eps_fn(uc, c, w, added_uc or None,
+                                               added_c or None)
                 if spec.inversion:
                     row = {k: torch.as_tensor(v[0], device="cuda")
                            for k, v in engine.inv_plan.coeffs.items()}
@@ -1556,6 +1706,87 @@ def phase_sd2(fa, tk, tc, card: str):
     return launches, drift
 
 
+def phase_sdxl(fa, tk, tc, card: str):
+    """SDXL (stabilityai/stable-diffusion-xl-base-1.0 widths and depth: the
+    dual CLIP, the text_time added embedding, 10-block transformer stacks)
+    at 1024^2 through ``DiffusionEngine.sample``, ``dpm++_2m_cfgpp`` at
+    w=5, 25 NFE: one UNet call and one VAE decode against the plain
+    attention, the first step against the plain attention, three exact
+    requests, one ``--quant dense`` and one ``--quant all`` request (each
+    with its UNet call against every kernel's plain version and its quant
+    drift against the first exact request), and one ``ddim_edit_cfg++``
+    request of a 1024^2 image; every count set to 0 just before each run.
+    Returns (the launches of each run under "sdxl <form>", the quant drift
+    of each int8 form, {form: s/image})."""
+    import tempfile
+
+    from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+
+    res, want, w = SDXL_RESOLUTION, SDXL_LAUNCHES_PER_REQUEST, SDXL_GUIDANCE
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random_init("sdxl", seed=0, dtype=torch.bfloat16,
+                                     device="cuda")
+    engine = DiffusionEngine(bundle, SDXL_SOLVER, nfe=SDXL_NFE)
+    torch.cuda.synchronize()
+    check(bundle.family == "sdxl" and bundle.text_encoder_2 is not None
+          and engine.plan.n_steps == SDXL_CALLS
+          and len(list(bundle.unet.cross_attention_sites())) ==
+          SDXL_TRANSFORMERS, "sdxl: not the SDXL bundle and plan")
+    print(f"  random sdxl bundle on the card in {time.perf_counter() - t0:.2f}"
+          f" s; {SDXL_SOLVER} at {SDXL_NFE} NFE: {SDXL_CALLS} UNet calls a"
+          " request", flush=True)
+    phase_models_vs_plain_attention(engine, fa, res)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = source_image(Path(tmp) / "source.png", res)
+    phase_first_steps(bundle, fa, src, (SDXL_SOLVER,), res, SDXL_NFE,
+                      lambda spec: w)
+
+    reads = counters(fa, tk, tc)
+    launches, seconds, drift = {}, {}, {}
+    launches["sdxl exact"], traj_e = phase_slice_requests(
+        engine, fa, tk, tc, card, "sdxl exact", want["exact"], res, w)
+    for mode, tol in (("dense", INT8_MODEL_REL_L2_TOL),
+                      ("all", INT8_ALL_MODEL_REL_L2_TOL)):
+        label = f"sdxl --quant {mode}"
+        engine_q = DiffusionEngine(bundle.quantized(mode), SDXL_SOLVER,
+                                   nfe=SDXL_NFE)
+        phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label, tol, res)
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        _, traj_q, seconds[mode], n = one_request(
+            engine_q, PROMPTS[0], reads, label, res, w,
+            return_trajectory=True)
+        expect = {name: want[mode].get(name, 0) for name in reads}
+        print(f"  {label}: {seconds[mode]:.3f} s/image, launches {n}; peak"
+              f" device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB [{card}]", flush=True)
+        check(n == expect, f"{label}: launches {n}, expected {expect}")
+        launches[f"sdxl {mode}"] = n
+        drift[f"sdxl {mode}"] = quant_drift(traj_e, traj_q, label)
+        del engine_q
+        torch.cuda.empty_cache()
+
+    label = f"sdxl {SDXL_EDIT_SOLVER}"
+    edit = DiffusionEngine(bundle, SDXL_EDIT_SOLVER, nfe=SDXL_NFE)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, tk, tc):
+        mod.reset_launches()
+    _, _, seconds["edit"], n = one_request(
+        edit, ["", PROMPTS[0], PROMPTS[1]], reads, label, res,
+        SDXL_EDIT_GUIDANCE, src_img=src)
+    expect = {name: want["edit"].get(name, 0) for name in reads}
+    print(f"  {label} (lambda={SDXL_EDIT_GUIDANCE}): {seconds['edit']:.3f}"
+          f" s/image, launches {n}; peak device memory"
+          f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    check(n == expect, f"{label}: launches {n}, expected {expect}")
+    launches["sdxl edit"] = n
+    del edit, engine, bundle
+    torch.cuda.empty_cache()
+    return launches, drift, seconds
+
+
 # name: (source, the TPU kernel it replaces, the path whose run counts its
 # launches).
 KERNEL_SOURCES = {
@@ -1620,6 +1851,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     card = card_name_and_power()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1689,6 +1921,15 @@ def main() -> None:
           " dense, 1 --quant all and 1 ddim_inversion_cfg++ request in"
           f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    sdxl_launches, sdxl_drift, _ = phase_sdxl(fa, tk, tc, card)
+    launches.update(sdxl_launches)
+    drift.update(sdxl_drift)
+    print(f"phase 9 ok: sdxl at {SDXL_RESOLUTION}^2, {SDXL_SOLVER} w="
+          f"{SDXL_GUIDANCE} {SDXL_NFE} NFE: 3 exact, 1 --quant dense, 1"
+          f" --quant all and 1 {SDXL_EDIT_SOLVER} request in"
+          f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
         summary = table.summary(name)
@@ -1702,11 +1943,14 @@ def main() -> None:
             "ms_per": "SD-1.5 request: sum over its shapes of calls per"
                       " request (in the slice that runs each) x time per"
                       " call; the same for plain_ms, bound_ms and"
-                      " library_ms; by_model: the same per model's request",
+                      " library_ms; by_model: the same per model's request"
+                      " (sd15, sd21_v, sdxl)",
             "by_model": summary["by_model"],
             "launches_by_path": {path: n[name] for path, n in launches.items()
                                  if name in n},
             "shapes": summary["shapes"]})
+    print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s"
+          f" [{card}]", flush=True)
     print(json.dumps({"kernels": kernels, "quant_drift": drift}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

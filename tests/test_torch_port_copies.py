@@ -138,17 +138,22 @@ def test_clip_tokenizer_ids_equal(tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, imported in a fresh interpreter."""
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cfgpp_tpu_torch\n"
+        "import chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    cfgpp_tpu_torch.__path__, 'cfgpp_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) > 25, names\n"
         "for new in ('cfgpp_tpu_torch.schedules.karras',\n"
-        "            'cfgpp_tpu_torch.cli.inversion'):\n"
+        "            'cfgpp_tpu_torch.cli.inversion',\n"
+        "            'cfgpp_tpu_torch.engine.pipeline',\n"
+        "            'cfgpp_tpu_torch.solvers.registry',\n"
+        "            'cfgpp_tpu_torch.tools.profile_requests'):\n"
         "    assert new in names, new\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('cfgpp_tpu', 'jax', 'jaxlib', 'flax'))\n"

@@ -41,11 +41,12 @@ KERNELS = ("int8_matmul", "int8_ff_geglu", "int8_conv3x3",
            "flash_attention_hd", "flash_attention_hd_int8")
 
 
-def _meta_forward(monkeypatch, mode):
-    """One UNet call of sd21_v at 768^2 on the meta device, with its cross
-    k/v computed in the call as the engine computes them once per request.
-    Returns (launches per UNet call, launches of the cross k/v, the conv
-    predicate's questions, the int8-score predicate's questions)."""
+def _meta_forward(monkeypatch, mode, model="sd21_v", res=RES):
+    """One UNet call of ``model`` at ``res``^2 on the meta device, with its
+    cross k/v computed in the call as the engine computes them once per
+    request (and, for SDXL, its added conditioning).  Returns (launches per
+    UNet call, launches of the cross k/v, the conv predicate's questions,
+    the int8-score predicate's questions)."""
     counts = dict.fromkeys(KERNELS, 0)
     conv_asked, score_asked = [], []
 
@@ -84,19 +85,24 @@ def _meta_forward(monkeypatch, mode):
     monkeypatch.setattr(quant, "int8_conv3x3_supported", ask_conv)
     monkeypatch.setattr(attention, "int8_score_applies", ask_score)
 
-    cfg = get_bundle_config("sd21_v").unet
+    bundle_cfg = get_bundle_config(model)
+    cfg = bundle_cfg.unet
     with torch.device("meta"):
         unet = unet_mod.UNet2DConditionModel(cfg)
         if mode is not None:
             quantized_structure_(unet, mode)
-        lat = RES // 8
+        lat = res // 8
         z = torch.empty(2, lat, lat, 4)
         ctx = torch.empty(2, 77, cfg.cross_attention_dim)
+        added = ()
+        if cfg.addition_embed_type is not None:
+            added = (torch.empty(2, bundle_cfg.text_encoder_2.projection_dim),
+                     torch.empty(2, 6))
         ckv = unet_mod.precompute_cross_kv(unet, ctx)
         kv = dict(counts)
         for k in counts:
             counts[k] = 0
-        out = unet(z, torch.tensor(501), ctx, cross_kv=ckv)
+        out = unet(z, torch.tensor(501), ctx, *added, cross_kv=ckv)
     assert out.shape == (2, lat, lat, 4)
     return counts, kv, conv_asked, score_asked
 
@@ -197,7 +203,10 @@ def test_launch_split_matches_jax_and_chip_smoke(sites, monkeypatch):
 
 
 def test_cli_models_are_the_jax_sd_models():
-    assert cli_common.MODELS == SD_MODELS
+    """The SD models are the JAX CLI's SD_MODELS; SDXL's follow them
+    (tests/test_torch_port_sdxl_sites.py)."""
+    assert cli_common.SD_MODELS == SD_MODELS
+    assert cli_common.MODELS[:len(SD_MODELS)] == SD_MODELS
 
 
 def test_cli_takes_sd21_v_on_cuda_by_default():
@@ -212,10 +221,21 @@ def test_cli_takes_sd21_v_on_cuda_by_default():
 
 
 def test_bundle_takes_sd2_and_rejects_sdxl():
-    """The sd21 family builds (on the meta device: structure only); the
-    sdxl family is still rejected."""
+    """The sd21 family builds (on the meta device: structure only), and so
+    does the sdxl family since SDXL was ported (its second text encoder
+    and tokenizer with it); a family the port does not cover is still
+    rejected."""
+    import dataclasses
+
     b = ModelBundle._empty("sd20", torch.bfloat16, torch.device("meta"), None)
     assert b.config.name == "sd21" and b.unet.config.use_linear_projection
+    assert b.text_encoder_2 is None and b.tokenizer_2 is None
+    xl = ModelBundle._empty("sdxl", torch.bfloat16, torch.device("meta"),
+                            None)
+    assert xl.family == "sdxl" and xl.text_encoder_2 is not None
+    assert xl.text_encoder_2.config.projection_dim == 1280
+    assert xl.tokenizer_2.pad_id == 0 and xl.tokenizer.pad_id != 0
+    unknown = dataclasses.replace(get_bundle_config("tiny_sd"),
+                                  family="sd3")
     with pytest.raises(ValueError, match="sd family"):
-        ModelBundle._empty("tiny_sdxl", torch.float32, torch.device("cpu"),
-                           None)
+        ModelBundle._empty(unknown, torch.float32, torch.device("cpu"), None)
