@@ -11,16 +11,19 @@ Layer map (bottom-up):
   csrc/       hand-written CUDA C++ kernels (sm_90a), built at first use
   kernels/    their wrappers (kernel on a CUDA tensor, plain PyTorch on a
               CPU tensor), the nvcc build and the ctypes loader
-  models/     CLIP text encoder, UNet2DCondition (SD-1.5 and SD-2.x
+  models/     CLIP text encoder, UNet2DCondition (SD-1.5, SD-2.x and SDXL
               layouts), VAE
-  weights/    JAX parameter trees -> the port's state dicts; the CLIP
-              tokenizer (copy)
+  weights/    safetensors I/O; HF-layout and SGM single-file checkpoints
+              and the native one -> the port's modules; JAX parameter
+              trees -> the port's state dicts; the CLIP tokenizer (copy)
   schedules/  DDIM noise-schedule tables and Karras sigmas (copies)
-  solvers/    the SD solvers' plans, steps, sampling and inversion loops
+  solvers/    the SD and SDXL solvers' plans, steps, sampling and
+              inversion loops
   engine/     ModelBundle + DiffusionEngine (tokenize -> encode -> solve ->
               decode)
   utils/      PNG output and input; roofline bounds of the kernels' work
-  cli/        text_to_img, inversion
+  tools/      A/B timing and profiling scripts; the SGM inverse map
+  cli/        text_to_img, inversion, convert_checkpoint
 """
 
 __version__ = "0.1.0"

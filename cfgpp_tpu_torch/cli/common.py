@@ -1,8 +1,10 @@
 """Shared CLI plumbing: bundle construction + engine creation.
 
-Counterpart of ``cfgpp_tpu/cli/common.py`` for the models the port runs
-(``sdxl_lightning`` comes with ``--light_ckpt``).  Weights are seeded random
-(``--ckpt_dir`` comes with ``from_pretrained``).  ``--method`` takes the
+Counterpart of ``cfgpp_tpu/cli/common.py``: every model of the JAX CLI.
+Weights: ``--ckpt_dir`` (an HF-layout safetensors directory, e.g. one that
+``cfgpp_tpu_torch.cli.convert_checkpoint`` wrote) or seeded random ones;
+``--light_ckpt`` overlays a single-file SGM checkpoint (SDXL-Lightning) on
+either, as the JAX CLI does; then ``--quant``.  ``--method`` takes the
 solvers of the chosen model's family (`parse_args` checks it).
 """
 
@@ -15,9 +17,10 @@ import torch
 from cfgpp_tpu_torch.configs import get_bundle_config
 from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
 from cfgpp_tpu_torch.solvers.registry import list_solvers
+from cfgpp_tpu_torch.weights.single_file import load_single_file
 
 SD_MODELS = ("sd15", "sd20", "sd21", "sd21_v", "tiny_sd")   # the JAX SD_MODELS
-SDXL_MODELS = ("sdxl", "tiny_sdxl")
+SDXL_MODELS = ("sdxl", "sdxl_lightning", "tiny_sdxl")
 MODELS = SD_MODELS + SDXL_MODELS
 
 # Reference default negative prompt (examples/text_to_img.py:17).
@@ -40,6 +43,14 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
     parser.add_argument("--model", type=str, default="sd15", choices=MODELS)
     parser.add_argument("--NFE", type=int, default=default_nfe)
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--ckpt_dir", type=str, default=None,
+                        help="HF-layout safetensors checkpoint directory "
+                             "(unet/ vae/ text_encoder*/); omitted -> seeded "
+                             "random weights")
+    parser.add_argument("--light_ckpt", type=str, default=None,
+                        help="single-file SGM-layout safetensors checkpoint "
+                             "(SDXL-Lightning) laid over the --ckpt_dir or "
+                             "random bundle")
     parser.add_argument("--resolution", type=int, default=None)
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=("bfloat16", "float32"),
@@ -68,9 +79,18 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
 
 
 def build_engine(args) -> DiffusionEngine:
+    """The JAX CLI's order (``cfgpp_tpu/cli/common.py:67-89``): the base
+    bundle from ``--ckpt_dir`` or seeded random weights, the
+    ``--light_ckpt`` single file over it, then ``--quant``."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    bundle = ModelBundle.random_init(args.model, seed=0, dtype=dtype,
-                                     device=args.device)
+    if args.ckpt_dir:
+        bundle = ModelBundle.from_pretrained(args.ckpt_dir, args.model,
+                                             dtype=dtype, device=args.device)
+    else:
+        bundle = ModelBundle.random_init(args.model, seed=0, dtype=dtype,
+                                         device=args.device)
+    if args.light_ckpt:
+        bundle = load_single_file(bundle, args.light_ckpt)
     if args.quant:
         bundle = bundle.quantized(mode=args.quant)
     return DiffusionEngine(bundle, solver=args.method, nfe=args.NFE)

@@ -4,8 +4,11 @@ Run: ``python -m cfgpp_tpu_torch.cli.text_to_img --model sd15 --method
 ddim_cfg++ --cfg_guidance 0.6 --NFE 50 --prompt "..." --device cuda``
 (``--model sd21_v`` for SD-2.1 at 768^2, v-prediction; ``--model sdxl
 --method dpm++_2m_cfgpp --cfg_guidance 5 --NFE 25`` for SDXL at 1024^2,
-with ``--prompt_2``, ``--null_prompt_2`` and ``--clip_skip``).
-Writes ``<workdir>/result/generated.png``.
+with ``--prompt_2``, ``--null_prompt_2`` and ``--clip_skip``; ``--model
+sdxl_lightning --ckpt_dir D --light_ckpt F --method ddim_cfg++_lightning
+--NFE 4 --cfg_guidance 1`` for SDXL-Lightning).  Weights come from
+``--ckpt_dir`` and ``--light_ckpt`` (see ``cli/common.py``), else from a
+seed.  Writes ``<workdir>/result/generated.png``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ parameters live in the `nn.Module`s.  Dtype policy, as in the JAX bundle:
   with id 0, not EOS (``bundle.py:112-119``).
 
 Bundles come from `random_init` (seeded random weights; benchmarks and the
-chip smoke run) or `from_flax` (the JAX package's parameter trees, through
+chip smoke run), `from_pretrained` (an HF-layout safetensors directory,
+through `cfgpp_tpu_torch.weights.convert`; `weights.checkpoint` writes
+one), `from_single_file` (an SGM single file, `weights.single_file`) or
+`from_flax` (the JAX package's parameter trees, through
 `cfgpp_tpu_torch.weights.bridge`; the parity tests).  `quantized` gives the
 opt-in int8 W8A8 UNet (`cfgpp_tpu_torch.weights.quantize`, modes "dense" and
 "all"): its int8 weights, scales and biases are made after the dtype cast,
@@ -174,6 +177,32 @@ class ModelBundle:
             bundle.text_encoder_2.load_state_dict(
                 clip_text_state_dict(params["text2"]))
         return bundle
+
+    @classmethod
+    def from_pretrained(cls, checkpoint_dir, config_or_name,
+                        dtype: torch.dtype = torch.bfloat16,
+                        device: Device = "cuda") -> "ModelBundle":
+        """Load an HF-layout checkpoint directory (``unet/``, ``vae/``,
+        ``text_encoder/`` and, for sdxl, ``text_encoder_2/`` of safetensors
+        files; the tokenizer's ``vocab.json``/``merges.txt`` from the
+        directory itself, else the fallback tokenizer), as
+        ``cfgpp_tpu/engine/bundle.py:from_pretrained`` does.  The modules
+        are made without a random draw and filled from the files."""
+        from cfgpp_tpu_torch.weights.convert import load_bundle_dir_
+        bundle = cls._empty(config_or_name, dtype, _device(device),
+                            str(checkpoint_dir))
+        load_bundle_dir_(bundle, checkpoint_dir)
+        return bundle
+
+    @classmethod
+    def from_single_file(cls, checkpoint_path, config_or_name,
+                         dtype: torch.dtype = torch.bfloat16,
+                         device: Device = "cuda") -> "ModelBundle":
+        """Load every module from one SGM single-file checkpoint
+        (`cfgpp_tpu_torch.weights.single_file`), without a random draw."""
+        from cfgpp_tpu_torch.weights.single_file import load_single_file
+        bundle = cls._empty(config_or_name, dtype, _device(device), None)
+        return load_single_file(bundle, checkpoint_path)
 
     def quantized(self, mode: str = "dense") -> "ModelBundle":
         """A bundle whose UNet is an int8 W8A8 copy of this one's

@@ -258,6 +258,12 @@ class DiffusionEngine:
         per-step noise, [n_steps, B, h, w, 4]) and ``src_latent_override``
         (the encoded source latent, [B, h, w, 4])."""
         sdxl = self.bundle.family == "sdxl"
+        if self.spec.lightning:
+            if float(cfg_guidance) != 1.0:
+                # cfgpp_tpu/engine/pipeline.py:389-391, before any work
+                raise ValueError("CFG should be turned off (cfg_guidance=1) "
+                                 "in the lightning version")
+            cfg_guidance = 1.0     # the literal, as the JAX core uses
         if clip_skip is not None and not sdxl:
             # the reference supports clip_skip only on the SDXL dual-encoder
             # path (latent_sdxl.py:88-92)

@@ -3,10 +3,9 @@
 Name -> spec tables of the reference's two solver factories
 (`latent_diffusion.py:13-26`, `latent_sdxl.py:15-28`).  A spec is
 declarative: which coefficient plan, which step kind, CFG vs CFG++,
-inversion/edit orchestration.  The SDXL table holds the 7 solvers that are
-not Lightning; the 5 ``*_lightning`` names (``cfgpp_tpu/solvers/
-registry.py:70-78``) come with SDXL-Lightning's checkpoint loader, and
-asking for one raises.
+inversion/edit orchestration.  The SDXL table holds the 12 solvers of
+the JAX one, the 5 SDXL-Lightning ones among them (trailing timestep
+spacing; ``DiffusionEngine.sample`` refuses them at w != 1).
 """
 
 from __future__ import annotations
@@ -66,21 +65,21 @@ _sd("ddim_edit_cfg++",     kind="ddim",    plan_fn=plans.plan_ddim,             
 _sx = _reg(_SDXL, "sdxl")
 _sx("ddim",                kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=False)
 _sx("euler",               kind="euler",   plan_fn=plans.plan_euler,             cfgpp=False)
+_sx("ddim_lightning",      kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=False, lightning=True, timestep_spacing="trailing")
+_sx("euler_lightning",     kind="euler",   plan_fn=plans.plan_euler,             cfgpp=False, lightning=True, timestep_spacing="trailing")
 _sx("ddim_edit",           kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=False, inversion=True, edit=True)
 _sx("ddim_cfg++",          kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=True)
 _sx("euler_cfg++",         kind="euler",   plan_fn=plans.plan_euler_vp_sigmas_sdxl, cfgpp=True)
+_sx("euler_cfg++_lightning", kind="euler", plan_fn=plans.plan_euler_vp_sigmas_sdxl, cfgpp=True, lightning=True, timestep_spacing="trailing")
+_sx("ddim_cfg++_lightning", kind="ddim",   plan_fn=plans.plan_ddim,              cfgpp=True, lightning=True, timestep_spacing="trailing")
 _sx("dpm++_2m_cfgpp",      kind="dpm2m",   plan_fn=plans.plan_dpmpp_2m_vp_sdxl,  cfgpp=True, diff_cfgpp_uses_uncond=True)
+_sx("dpm++_2m_cfgpp_lightning", kind="dpm2m", plan_fn=plans.plan_dpmpp_2m_vp_sdxl, cfgpp=True, diff_cfgpp_uses_uncond=True, lightning=True, timestep_spacing="trailing")
 _sx("ddim_edit_cfg++",     kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=True, inversion=True, edit=True)
 
 # The reference names the same solver `dpm++_2m_cfg++` (SD) and
 # `dpm++_2m_cfgpp` (SDXL); each table takes both names.
 _SD["dpm++_2m_cfgpp"] = _SD["dpm++_2m_cfg++"]
 _SDXL["dpm++_2m_cfg++"] = _SDXL["dpm++_2m_cfgpp"]
-
-# SDXL-Lightning's solvers, not in the port yet.
-LIGHTNING_SOLVERS = ("ddim_lightning", "euler_lightning",
-                     "euler_cfg++_lightning", "ddim_cfg++_lightning",
-                     "dpm++_2m_cfgpp_lightning")
 
 _TABLES = {"sd": _SD, "sdxl": _SDXL}
 
@@ -94,10 +93,6 @@ def _table(family: str) -> Dict[str, SolverSpec]:
 
 def get_solver_spec(name: str, family: str = "sd") -> SolverSpec:
     table = _table(family)
-    if family == "sdxl" and name in LIGHTNING_SOLVERS:
-        raise ValueError(f"Solver {name} is an SDXL-Lightning solver: the "
-                         "PyTorch port has no Lightning solvers yet (they come "
-                         "with --light_ckpt, ROADMAP item 1.4)")
     if name not in table:
         raise ValueError(f"Solver {name} does not exist for family {family!r} "
                          f"in the PyTorch port. Available: {list_solvers(family)}")

@@ -10,7 +10,9 @@ copies, memsets), the busy share (that sum over the median s/image) and the
 kernels that took the most of it, by name.  Random weights from seed 0,
 batch 1, bf16, the model's default resolution, the family's op-point:
 ``ddim_cfg++`` at lambda=0.6, 50 NFE for the SD models, ``dpm++_2m_cfgpp``
-at w=5, 25 NFE for SDXL (``bench.py:72``); cuDNN and cuBLAS TF32 off, as
+at w=5, 25 NFE for SDXL (``bench.py:72``), ``ddim_cfg++_lightning`` at
+w=1, 4 NFE for ``sdxl_lightning`` (the reference's Lightning command,
+README.md:70-74); cuDNN and cuBLAS TF32 off, as
 ``chip_smoke.py`` runs them.  Prints the card's name and power limit, then
 one JSON line per form.
 """
@@ -29,8 +31,9 @@ import torch
 PROMPT = "a photograph of an astronaut riding a horse"
 FORMS = ("exact", "dense", "all")
 REQUESTS = 3
-# family: (solver, NFE, guidance)
-OP_POINTS = {"sd": ("ddim_cfg++", 50, 0.6), "sdxl": ("dpm++_2m_cfgpp", 25, 5.0)}
+# model or, failing that, family: (solver, NFE, guidance)
+OP_POINTS = {"sd": ("ddim_cfg++", 50, 0.6), "sdxl": ("dpm++_2m_cfgpp", 25, 5.0),
+             "sdxl_lightning": ("ddim_cfg++_lightning", 4, 1.0)}
 
 
 def card() -> str:
@@ -80,7 +83,7 @@ def main(argv=None) -> None:
     bundle = ModelBundle.random_init(args.model, seed=0, dtype=torch.bfloat16,
                                      device="cuda")
     res = bundle.config.default_resolution
-    solver, nfe, w = OP_POINTS[bundle.family]
+    solver, nfe, w = OP_POINTS.get(args.model, OP_POINTS[bundle.family])
     for form in FORMS:
         b = bundle if form == "exact" else bundle.quantized(form)
         engine = DiffusionEngine(b, solver, nfe=nfe)

@@ -29,8 +29,10 @@ Phases, one status line each; any failure exits non-zero:
    a 2048-wide context, the VAE's d=512 attention at 16384 tokens in bf16
    and in f32, the int8 matmuls and feed-forwards at 640 and 1280
    channels, the 16 distinct shapes of the 35 admitted 3x3 convs, 128-wide
-   latent rows among them, and the int8 score at both levels).  Each
-   model's rows keep their own per-request sums.  The int8
+   latent rows among them, and the int8 score at both levels); then the
+   level-1 and level-2 self- and cross-attention at batch 1 (phase 10's
+   single-branch Lightning forms), with the grid the kernel picks there.
+   Each model's rows keep their own per-request sums.  The int8
    kernels are also held stage by stage: their int8 rows (conv: windows,
    attention: q and k) and scales against the plain quantizers, the
    feed-forward's f32 hidden state and its requantize, and each GEMM and
@@ -64,7 +66,8 @@ Phases, one status line each; any failure exits non-zero:
    against the same modules with every kernel's plain version, with the
    launches of each entry point per call.
 7. solvers and inversion, on the bf16 bundle of phase 3: every SD solver
-   loop (the 14 of the registry, and the inversion loop in both forms) run
+   loop (the 14 of the registry, and the inversion loop in both forms; and
+   the 5 SDXL-Lightning loops at 4 NFE, trailing timesteps, w=1) run
    with a synthetic eps function on the card at the slice's latent shape,
    held against the same loop on the CPU with the card's noise copied over
    (1e-5 x the latent scale); then one request through
@@ -102,9 +105,30 @@ Phases, one status line each; any failure exits non-zero:
    dense`` and one ``--quant all`` request with their UNet calls against
    the plain kernels and their drift), then one ``ddim_edit_cfg++``
    request (lambda=0.6, 25 NFE) of a 1024^2 image made from the seed.
-10. summary: the run's wall time, a JSON line of the kernels
-   (``launches_by_path`` with the sd21_v and sdxl runs; ``by_model``: each
-   model's per-request sums), then the result line ``{"ok": true,
+10. SDXL-Lightning: a seeded random ``sdxl_lightning`` bundle (bf16; the
+   f32 VAE and CLIPs rounded to bf16 values) written as a full-width SGM
+   single file by the port's inverse map (``tools/sgm_synth.py``, about 6.9
+   GB), converted by ``python -m cfgpp_tpu_torch.cli.convert_checkpoint``
+   (``main``) to the native HF layout (about 8.8 GB) and loaded with
+   ``ModelBundle.from_pretrained``: every tensor bit for bit the random
+   bundle's, with bytes, seconds and GB/s of each step.  It needs about 17
+   GB free in the temporary directory (``TMPDIR``), and checks first.  The
+   engine comes from ``cli.common.build_engine`` of the reference's command
+   (``--model sdxl_lightning --ckpt_dir D --light_ckpt F --method
+   ddim_cfg++_lightning --NFE 4 --cfg_guidance 1``), bit for bit again;
+   then the first ``ddim_cfg++_lightning`` and (batch-1) ``ddim_lightning``
+   steps against the plain attention, three exact requests (561 launches),
+   one ``--quant dense`` request (its UNet call against every kernel's plain
+   version, 1348/280/280/281 launches, drift < 0.15), one request each of
+   ``ddim_lightning``, ``euler_lightning``, ``euler_cfg++_lightning`` (561)
+   and ``dpm++_2m_cfgpp_lightning`` (421) with the batch of every UNet call
+   (1 for the CFG forms at w=1), and w=5 refused with the JAX engine's
+   message before any launch; s/image and peak device memory of each.  Both
+   files are deleted.
+11. summary: the run's wall time, a JSON line of the kernels
+   (``launches_by_path`` with the sd21_v, sdxl and sdxl_lightning runs;
+   ``by_model``: each model's per-request sums, ``sdxl_lightning`` from the
+   sdxl rows at the Lightning calls), then the result line ``{"ok": true,
    "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
@@ -436,35 +460,87 @@ SDXL_LAUNCHES_PER_REQUEST = {
             "flash_attention_hd": SDXL_BLOCKS * SDXL_CALLS + 1},
     "edit": {"flash_attention_hd": SDXL_SITES_PER_CALL * 2 * SDXL_NFE + 2},
 }
+# Phase 10: SDXL-Lightning (sdxl_lightning: SDXL's UNet, its weights
+# distilled) at 1024^2, the reference's Lightning command: ddim_cfg++_lightning
+# at 4 NFE, w=1 (trailing timesteps), through a full-width single file,
+# convert_checkpoint and from_pretrained.  Per request: 4 UNet calls of 140
+# attention sites and the decode, 561 flash_attention_hd (the 2M form loops
+# timesteps[:-1]: 3 calls, 421); under --quant dense phase 9's split per
+# call times 4, plus the cross k/v.  ddim_lightning and euler_lightning are
+# CFG forms, so at w=1 they run the conditional branch alone: their UNet
+# calls have batch 1 (the CFG++ forms batch 2).
+# tests/test_torch_port_lightning_sites.py derives these from the JAX plans
+# and _needs_branches.
+LIGHTNING_MODEL = "sdxl_lightning"
+LIGHTNING_NFE = 4
+LIGHTNING_SOLVER = "ddim_cfg++_lightning"
+LIGHTNING_GUIDANCE = 1.0
+LIGHTNING_SOLVERS = ("ddim_lightning", "euler_lightning",
+                     "euler_cfg++_lightning", "dpm++_2m_cfgpp_lightning")
+# UNet calls and the batch of each call, per request
+LIGHTNING_CALLS = {LIGHTNING_SOLVER: 4, "ddim_lightning": 4,
+                   "euler_lightning": 4, "euler_cfg++_lightning": 4,
+                   "dpm++_2m_cfgpp_lightning": LIGHTNING_NFE - 1}
+LIGHTNING_BATCH = {LIGHTNING_SOLVER: 2, "ddim_lightning": 1,
+                   "euler_lightning": 1, "euler_cfg++_lightning": 2,
+                   "dpm++_2m_cfgpp_lightning": 2}
+LIGHTNING_LAUNCHES_PER_REQUEST = {
+    **{name: {"flash_attention_hd": SDXL_SITES_PER_CALL * calls + 1}
+       for name, calls in LIGHTNING_CALLS.items()},
+    "dense": {"int8_matmul": SDXL_DENSE_MATMULS * LIGHTNING_CALLS[
+        LIGHTNING_SOLVER] + 2 * SDXL_BLOCKS,
+              "int8_ff_geglu": SDXL_BLOCKS * LIGHTNING_CALLS[LIGHTNING_SOLVER],
+              "flash_attention_qkv_packed": SDXL_BLOCKS * LIGHTNING_CALLS[
+                  LIGHTNING_SOLVER],
+              "flash_attention_hd": SDXL_BLOCKS * LIGHTNING_CALLS[
+                  LIGHTNING_SOLVER] + 1},
+}
+# Phase 10 writes a bf16 SGM file (about 6.9 GB) and an HF-layout
+# directory (about 8.8 GB: the VAE and both CLIPs in f32) into one
+# temporary directory.
+LIGHTNING_DISK_BYTES = 17 * 10**9
+
 # The same kernels at SDXL's 1024^2 shapes: (level, tokens per image,
 # channels, heads, transformer blocks, transformers).  Calls per request as
 # for sd21_v: exact for the bf16 attention, dense for the packed and int8
 # rows, all for the conv and the int8 score, the edit's encode for the f32
 # attention.
 SDXL_LEVELS = [("L1", 4096, 640, 10, 10, 5), ("L2", 1024, 1280, 20, 60, 6)]
-SDXL_ATTENTION_CASES = [
-    case for lvl, n, c, h, blocks, _ in SDXL_LEVELS for case in (
-        (f"sdxl {lvl} self", (2, n, c), n, h, None, blocks * SDXL_CALLS),
-        (f"sdxl {lvl} cross", (2, n, c), 77, h, None, blocks * SDXL_CALLS))
-] + [("sdxl vae mid self", (1, 16384, 512), 16384, 1, None, 1)]
+
+
+def sdxl_cases(calls: int, batch: int = 2, tag: str = "sdxl"):
+    """The attention, packed, int8_matmul and int8_ff_geglu rows of an SDXL
+    request of ``calls`` UNet calls of batch ``batch`` (the cross k/v once
+    a request, the decode's attention once)."""
+    attention = [
+        case for lvl, n, c, h, blocks, _ in SDXL_LEVELS for case in (
+            (f"{tag} {lvl} self", (batch, n, c), n, h, None, blocks * calls),
+            (f"{tag} {lvl} cross", (batch, n, c), 77, h, None,
+             blocks * calls))
+    ] + [(f"{tag} vae mid self", (1, 16384, 512), 16384, 1, None, 1)]
+    packed = [(f"{tag} {lvl} self packed", (batch, n, 3 * c), h,
+               blocks * calls) for lvl, n, c, h, blocks, _ in SDXL_LEVELS]
+    matmul = [
+        case for lvl, n, c, _, blocks, trs in SDXL_LEVELS for case in (
+            (f"{tag} {lvl} to_qkv", (batch, n, c), 3 * c, "ln",
+             blocks * calls),
+            (f"{tag} {lvl} to_q", (batch, n, c), c, "ln", blocks * calls),
+            (f"{tag} {lvl} attn1/attn2 to_out, proj_out", (batch, n, c), c,
+             "bias_res", (2 * blocks + trs) * calls),
+            (f"{tag} {lvl} proj_in (GroupNorm as the affine prologue)",
+             (batch, n, c), c, "affine", trs * calls))
+    ] + [(f"{tag} {lvl} cross k/v", (batch, 77, 2048), c, "none", 2 * blocks)
+         for lvl, _, c, _, blocks, _ in SDXL_LEVELS]
+    ff = [(f"{tag} {lvl} ff", (batch, n, c), blocks * calls)
+          for lvl, n, c, _, blocks, _ in SDXL_LEVELS]
+    return attention, packed, matmul, ff
+
+
+(SDXL_ATTENTION_CASES, SDXL_PACKED_CASES, SDXL_INT8_MATMUL_CASES,
+ SDXL_INT8_FF_CASES) = sdxl_cases(SDXL_CALLS)
 SDXL_F32_ATTENTION_CASES = [
     ("sdxl vae mid self (the edit's f32 encode)", (1, 16384, 512), 16384, 1,
      None, 1)]
-SDXL_PACKED_CASES = [(f"sdxl {lvl} self packed", (2, n, 3 * c), h,
-                      blocks * SDXL_CALLS)
-                     for lvl, n, c, h, blocks, _ in SDXL_LEVELS]
-SDXL_INT8_MATMUL_CASES = [
-    case for lvl, n, c, _, blocks, trs in SDXL_LEVELS for case in (
-        (f"sdxl {lvl} to_qkv", (2, n, c), 3 * c, "ln", blocks * SDXL_CALLS),
-        (f"sdxl {lvl} to_q", (2, n, c), c, "ln", blocks * SDXL_CALLS),
-        (f"sdxl {lvl} attn1/attn2 to_out, proj_out", (2, n, c), c, "bias_res",
-         (2 * blocks + trs) * SDXL_CALLS),
-        (f"sdxl {lvl} proj_in (GroupNorm as the affine prologue)", (2, n, c),
-         c, "affine", trs * SDXL_CALLS))
-] + [(f"sdxl {lvl} cross k/v", (2, 77, 2048), c, "none", 2 * blocks)
-     for lvl, _, c, _, blocks, _ in SDXL_LEVELS]
-SDXL_INT8_FF_CASES = [(f"sdxl {lvl} ff", (2, n, c), blocks * SDXL_CALLS)
-                      for lvl, n, c, _, blocks, _ in SDXL_LEVELS]
 # (site, x shape NHWC, O, GroupNorm prologue, residual, br, calls per UNet
 # call) of the 35 admitted 3x3 convs: resnet conv1 (prologue), conv2
 # (prologue and the skip add as its residual) and the upsamplers.
@@ -503,10 +579,26 @@ SDXL_CONV_CASES = [(f"sdxl {site}", shape, o, gn, res, br, n * SDXL_CALLS)
 SDXL_INT8_ATTENTION_CASES = [
     (f"sdxl {lvl} self packed", (2, n, 3 * c), h, True, blocks * SDXL_CALLS)
     for lvl, n, c, h, blocks, _ in SDXL_LEVELS]
+# Phase 10's rows.  The batch-2 forms (ddim_cfg++_lightning, its --quant
+# dense request) run phase 9's shapes, 4 UNet calls a request: their
+# per-request sums reuse the sdxl rows' times at these calls (site ->
+# calls per request, by kernel).  ddim_lightning and euler_lightning run
+# batch-1 UNet calls, new to the attention kernel at 1024^2: the L1 and L2
+# self- and cross-attention at batch 1 are rows of their own, with the
+# calls of one such request (the decode's row is the sdxl one).
+LIGHTNING_SITE_CALLS = {
+    name: {site: case[-1] for site, *case in cases}
+    for name, cases in zip(("flash_attention_hd", "flash_attention_qkv_packed",
+                            "int8_matmul", "int8_ff_geglu"),
+                           sdxl_cases(LIGHTNING_CALLS[LIGHTNING_SOLVER]))}
+LIGHTNING_B1_ATTENTION_CASES = sdxl_cases(
+    LIGHTNING_CALLS["ddim_lightning"], batch=1,
+    tag="sdxl_lightning batch 1")[0][:-1]
 # Each kind of phase-2 row: (model, its cases) in table order.
 CASES = {
     "attention": (("sd15", ATTENTION_CASES), ("sd21_v", SD2_ATTENTION_CASES),
-                  ("sdxl", SDXL_ATTENTION_CASES)),
+                  ("sdxl", SDXL_ATTENTION_CASES),
+                  ("sdxl_lightning_b1", LIGHTNING_B1_ATTENTION_CASES)),
     "attention_f32": (("sd15", ATTENTION_CASES),
                       ("sd21_v", SD2_F32_ATTENTION_CASES),
                       ("sdxl", SDXL_F32_ATTENTION_CASES)),
@@ -612,6 +704,19 @@ def sdpa_backend(fn) -> str:
     return "math: " + ", ".join(sorted(set(n[:40] for n in names)))
 
 
+H100_SMS = 132
+
+
+def flash_blocks(batch: int, n: int, heads: int, rows_per_warp: int = 32):
+    """(blocks, warps per block) that ``csrc/flash_attention.cu``'s
+    ``launch_rows`` picks at head dim 64 (two 16-row m tiles a warp): four
+    warps a block where that grid covers every SM, else one."""
+    blocks4 = -(-n // (4 * rows_per_warp)) * heads * batch
+    if blocks4 >= H100_SMS:
+        return blocks4, 4
+    return -(-n // rows_per_warp) * heads * batch, 1
+
+
 def sdpa_heads(x, heads: int, rows: int):
     """[B, N, H*D] -> the head-split view [B, H, rows, D] (no copy)."""
     b, n, hd = x.shape
@@ -692,25 +797,32 @@ class KernelTable:
              "bound_by": work.bound_by(), "share_of_bound": bound_ms / ms,
              "library_ms": library_ms, "library_backend": backend, **extra})
 
-    def summary(self, kernel_name) -> dict:
+    def summary(self, kernel_name, derived=None) -> dict:
         """Per request of the SD-1.5 path: the sum over its shapes of calls
-        x time per call; ``by_model``: the same for each model's path."""
+        x time per call; ``by_model``: the same for each model's path.
+        ``derived``: {path: (model, {site: calls per request})}, a path that
+        runs ``model``'s shapes at other calls per request (its sums reuse
+        those rows' times)."""
         rows = self.rows[kernel_name]
 
-        def per_request(model_rows):
+        def per_request(model_rows, calls):
+            n = {r["site"]: calls[r["site"]] if calls else
+                 r["calls_per_request"] for r in model_rows}
             top = max(model_rows, key=lambda r: (
-                r["calls_per_request"] * r["bound_ms"], r["bound_ms"]))
+                n[r["site"]] * r["bound_ms"], r["bound_ms"]))
             library = all(r["library_ms"] is not None for r in model_rows)
-            out = {key: sum(r["calls_per_request"] * r[key]
-                            for r in model_rows)
+            out = {key: sum(n[r["site"]] * r[key] for r in model_rows)
                    for key in ("ms", "plain_ms", "bound_ms")}
             out.update(bound_by=top["bound_by"], library_ms=sum(
-                r["calls_per_request"] * r["library_ms"] for r in model_rows)
+                n[r["site"]] * r["library_ms"] for r in model_rows)
                 if library else None)
             return out
 
-        by_model = {m: per_request([r for r in rows if r["model"] == m])
+        by_model = {m: per_request([r for r in rows if r["model"] == m], None)
                     for m in dict.fromkeys(r["model"] for r in rows)}
+        for path, (model, calls) in (derived or {}).items():
+            by_model[path] = per_request(
+                [r for r in rows if r["model"] == model], calls)
         return {"max_abs_err": max(r["max_abs_err"] for r in rows),
                 **by_model["sd15"], "by_model": by_model, "shapes": rows}
 
@@ -865,6 +977,13 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
                 calls, rl.flash_attention(b, n, rows, heads, c // heads),
                 library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
                 model=model)
+
+    for site, (b, n, c), _, heads, _, _ in LIGHTNING_B1_ATTENTION_CASES:
+        blocks, warps = flash_blocks(b, n, heads)
+        print(f"  flash_attention_hd {site}: grid of {blocks} blocks of"
+              f" {warps} warp(s) (csrc/flash_attention.cu launch_rows: four"
+              f" warps where that gives every one of {H100_SMS} SMs a block)",
+              flush=True)
 
     for model, cases in CASES["packed"]:
         for site, shape, heads, calls in cases:
@@ -1410,7 +1529,8 @@ def eps_synthetic(z, t):
 
 
 def phase_solver_loops() -> float:
-    """Every SD solver's loop and the inversion loop in both forms on CUDA
+    """Every SD solver's loop, the inversion loop in both forms and the 5
+    SDXL-Lightning loops (trailing timesteps, LIGHTNING_NFE, w=1) on CUDA
     tensors, each against the same loop on the CPU with the card's noise
     copied over; returns the worst error relative to its bound."""
     from cfgpp_tpu_torch.schedules.ddim import make_ddim_schedule
@@ -1420,6 +1540,13 @@ def phase_solver_loops() -> float:
     names = sorted({registry.get_solver_spec(n).name
                     for n in registry.list_solvers("sd")})
     check(len(names) == 14, f"{len(names)} SD solvers, expected 14")
+    jobs = [(registry.get_solver_spec(n), sched) for n in names]
+    lightning = [registry.get_solver_spec(n, "sdxl")
+                 for n in registry.list_solvers("sdxl")
+                 if registry.get_solver_spec(n, "sdxl").lightning]
+    check(len(lightning) == 5, f"{len(lightning)} Lightning solvers")
+    trailing = make_ddim_schedule(LIGHTNING_NFE, timestep_spacing="trailing")
+    jobs += [(spec, trailing) for spec in lightning]
     worst = 0.0
 
     def hold(what, got, want):
@@ -1431,9 +1558,9 @@ def phase_solver_loops() -> float:
         check(bool(torch.isfinite(got).all()) and err <= tol,
               f"loop {what}: card vs CPU max err {err:.3e} (tol {tol:.3e})")
 
-    for name in names:
-        spec = registry.get_solver_spec(name)
-        plan = spec.plan_fn(sched)
+    for spec, schedule in jobs:
+        name, plan = spec.name, spec.plan_fn(schedule)
+        w = LIGHTNING_GUIDANCE if spec.lightning else guidance_of(spec)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         zT = sampler.init_latent(plan, gen, LOOP_SHAPE)
         drawn = []
@@ -1445,17 +1572,17 @@ def phase_solver_loops() -> float:
 
         ancestral = plan.needs_noise
         got, (gz0, gzt) = sampler.run_solver(
-            spec, plan, eps_synthetic, zT, guidance_of(spec),
+            spec, plan, eps_synthetic, zT, w,
             noise_fn=card_noise if ancestral else None, return_trajectory=True)
         want, (wz0, wzt) = sampler.run_solver(
-            spec, plan, eps_synthetic, zT.cpu(), guidance_of(spec),
+            spec, plan, eps_synthetic, zT.cpu(), w,
             noise_fn=(lambda i, like: drawn[i].cpu()) if ancestral else None,
             return_trajectory=True)
         check(len(drawn) == (plan.n_steps if ancestral else 0),
               f"loop {name}: {len(drawn)} noise draws")
-        for what, g, w in (("final", got, want), ("z0t", gz0, wz0),
+        for what, g, x in (("final", got, want), ("z0t", gz0, wz0),
                            ("zt", gzt, wzt)):
-            hold(f"{name} {what}", g, w)
+            hold(f"{name} {what}", g, x)
     inv_plan = plans.plan_ddim_inversion(sched)
     z0 = torch.randn(LOOP_SHAPE, generator=torch.Generator(
         device="cuda").manual_seed(SEED), device="cuda")
@@ -1466,10 +1593,11 @@ def phase_solver_loops() -> float:
         want = sampler.run_inversion(spec, inv_plan, eps_synthetic, z0.cpu(),
                                      guidance_of(spec))
         hold(f"run_inversion {name}", got, want)
-    print(f"  solver loops: {len(names)} solvers and run_inversion in both"
-          f" forms, {NFE} NFE at {LOOP_SHAPE}, card vs CPU within tolerance"
-          f" (worst {worst:.3f} of it; tol {LOOP_REL_TOL} x max(1, scale))",
-          flush=True)
+    print(f"  solver loops: {len(names)} SD solvers and run_inversion in both"
+          f" forms, {NFE} NFE, and the {len(lightning)} Lightning solvers,"
+          f" {LIGHTNING_NFE} NFE trailing at w={LIGHTNING_GUIDANCE}, at"
+          f" {LOOP_SHAPE}: card vs CPU within tolerance (worst {worst:.3f} of"
+          f" it; tol {LOOP_REL_TOL} x max(1, scale))", flush=True)
     return worst
 
 
@@ -1787,6 +1915,190 @@ def phase_sdxl(fa, tk, tc, card: str):
     return launches, drift, seconds
 
 
+def bundle_tensors(bundle) -> dict:
+    """{module.name: tensor} of every module of a bundle."""
+    return {f"{attr}.{k}": v for attr in ("unet", "vae", "text_encoder",
+                                          "text_encoder_2")
+            for k, v in getattr(bundle, attr).state_dict().items()}
+
+
+def check_bit_equal(got, want, what: str) -> None:
+    got, want = bundle_tensors(got), bundle_tensors(want)
+    bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+           or not torch.equal(got[k], want[k])]
+    check(sorted(got) == sorted(want) and not bad,
+          f"{what}: {len(bad)} tensors differ from the random bundle's"
+          f" (first {bad[:3]})")
+
+
+def timed(fn):
+    """(fn's result, its seconds), the device synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_lightning(fa, tk, tc, card: str):
+    """SDXL-Lightning at 1024^2 from files, through the user's entry points:
+    a seeded random ``sdxl_lightning`` bundle on the card (bf16; its f32
+    VAE and CLIPs rounded to bf16 values, so that a bf16 file holds them
+    exactly) written as a full SGM single file by the port's inverse map;
+    ``cli.convert_checkpoint`` of that file to the native (HF) layout;
+    ``from_pretrained`` of it, bit for bit the random bundle; then the
+    engine from ``cli.common.build_engine`` of the reference's command
+    (``--ckpt_dir`` and ``--light_ckpt`` over it), bit for bit again.  Runs
+    the first ``ddim_cfg++_lightning`` step and the first (batch-1)
+    ``ddim_lightning`` step against the plain attention, three exact
+    requests, one ``--quant dense`` request (UNet call against every
+    kernel's plain version, drift against the first exact request), one
+    request of each other Lightning solver (the batch of each UNet call
+    checked), and the w=5 refusal before any UNet call; every count set to 0
+    just before each run.  Returns (the launches of each run under
+    "sdxl_lightning <form>", the dense drift, {form: s/image})."""
+    import argparse
+    import shutil
+    import tempfile
+
+    from cfgpp_tpu_torch.cli import common, convert_checkpoint
+    from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+    from cfgpp_tpu_torch.tools.sgm_synth import synth_single_file
+    from cfgpp_tpu_torch.weights.safetensors_io import save_file
+
+    res, want, w = SDXL_RESOLUTION, LIGHTNING_LAUNCHES_PER_REQUEST, \
+        LIGHTNING_GUIDANCE
+    tmp_root = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp_root).free
+    print(f"  {tmp_root}: {free / 1e9:.1f} GB free, phase 10 needs"
+          f" {LIGHTNING_DISK_BYTES / 1e9:.0f} GB", flush=True)
+    check(free >= LIGHTNING_DISK_BYTES, f"{tmp_root} has {free / 1e9:.1f} GB"
+          f" free; phase 10 writes about {LIGHTNING_DISK_BYTES / 1e9:.0f} GB"
+          " (set TMPDIR to a larger disk)")
+    rand = ModelBundle.random_init(LIGHTNING_MODEL, seed=0,
+                                   dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        for p in bundle_tensors(rand).values():
+            p.copy_(p.bfloat16())
+    seconds, launches = {}, {}
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        single, native = Path(tmp) / "sdxl_lightning.safetensors", \
+            Path(tmp) / "native"
+        state = {k: v.bfloat16() for k, v in synth_single_file(rand).items()}
+        nbytes, sec = timed(lambda: save_file(state, single))
+        del state
+        print(f"  wrote the SGM single file: {nbytes / 1e9:.3f} GB in"
+              f" {sec:.2f} s, {nbytes / 1e9 / sec:.2f} GB/s [{card}]",
+              flush=True)
+        _, sec = timed(lambda: convert_checkpoint.main([
+            "--model", LIGHTNING_MODEL, "--single_file", str(single),
+            "--dst", str(native), "--dtype", "bfloat16", "--device",
+            "cuda"]))
+        nat = dir_bytes(native)
+        print(f"  convert_checkpoint --single_file: read {nbytes / 1e9:.3f} GB,"
+              f" wrote {nat / 1e9:.3f} GB in {sec:.2f} s,"
+              f" {(nbytes + nat) / 1e9 / sec:.2f} GB/s [{card}]", flush=True)
+        loaded, sec = timed(lambda: ModelBundle.from_pretrained(
+            native, LIGHTNING_MODEL, dtype=torch.bfloat16, device="cuda"))
+        print(f"  from_pretrained: {nat / 1e9:.3f} GB in {sec:.2f} s,"
+              f" {nat / 1e9 / sec:.2f} GB/s [{card}]", flush=True)
+        check_bit_equal(loaded, rand, "from_pretrained")
+        del loaded
+        parser = argparse.ArgumentParser()
+        common.add_common_args(parser)
+        args = common.parse_args(parser, [
+            "--model", LIGHTNING_MODEL, "--ckpt_dir", str(native),
+            "--light_ckpt", str(single), "--method", LIGHTNING_SOLVER,
+            "--NFE", str(LIGHTNING_NFE), "--cfg_guidance", "1"])
+        engine, sec = timed(lambda: common.build_engine(args))
+        print(f"  build_engine --ckpt_dir --light_ckpt: read"
+              f" {(nat + nbytes) / 1e9:.3f} GB in {sec:.2f} s,"
+              f" {(nat + nbytes) / 1e9 / sec:.2f} GB/s [{card}]", flush=True)
+        check(args.cfg_guidance == w and args.device == "cuda"
+              and engine.solver_name == LIGHTNING_SOLVER
+              and engine.nfe == LIGHTNING_NFE, "build_engine: not the"
+              " reference's Lightning command")
+        check_bit_equal(engine.bundle, rand, "build_engine")
+    del rand
+    torch.cuda.empty_cache()
+    bundle = engine.bundle
+
+    phase_first_steps(bundle, fa, None, (LIGHTNING_SOLVER, "ddim_lightning"),
+                      res, LIGHTNING_NFE, lambda spec: w)
+
+    reads = counters(fa, tk, tc)
+    label = f"{LIGHTNING_MODEL} exact"
+    launches[label], traj_e = phase_slice_requests(
+        engine, fa, tk, tc, card, label, want[LIGHTNING_SOLVER], res, w)
+
+    label = f"{LIGHTNING_MODEL} --quant dense"
+    engine_q = DiffusionEngine(bundle.quantized("dense"), LIGHTNING_SOLVER,
+                               nfe=LIGHTNING_NFE)
+    phase_int8_unet_vs_plain(engine_q, fa, tk, tc, label,
+                             INT8_MODEL_REL_L2_TOL, res)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, tk, tc):
+        mod.reset_launches()
+    _, traj_q, seconds["dense"], n = one_request(
+        engine_q, PROMPTS[0], reads, label, res, w, return_trajectory=True)
+    expect = {name: want["dense"].get(name, 0) for name in reads}
+    print(f"  {label}: {seconds['dense']:.3f} s/image, launches {n}; peak"
+          f" device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB [{card}]", flush=True)
+    check(n == expect, f"{label}: launches {n}, expected {expect}")
+    launches[f"{LIGHTNING_MODEL} dense"] = n
+    drift = quant_drift(traj_e, traj_q, label)
+    del engine_q
+    torch.cuda.empty_cache()
+
+    for name in LIGHTNING_SOLVERS:
+        other = DiffusionEngine(bundle, name, nfe=LIGHTNING_NFE)
+        batches = []
+        hook = bundle.unet.register_forward_pre_hook(
+            lambda module, a: batches.append(a[0].shape[0]))
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        try:
+            _, _, seconds[name], n = one_request(other, PROMPTS[0], reads,
+                                                 name, res, w)
+        finally:
+            hook.remove()
+        expect = {k: want[name].get(k, 0) for k in reads}
+        calls = [LIGHTNING_BATCH[name]] * LIGHTNING_CALLS[name]
+        print(f"  {LIGHTNING_MODEL} {name}: {seconds[name]:.3f} s/image,"
+              f" launches {n}, UNet calls of batch {batches}; peak device"
+              f" memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+              f" [{card}]", flush=True)
+        check(n == expect, f"{name}: launches {n}, expected {expect}")
+        check(batches == calls, f"{name}: UNet calls of batch {batches},"
+              f" expected {calls}")
+        launches[f"{LIGHTNING_MODEL} {name}"] = n
+
+    for mod in (fa, tk, tc):
+        mod.reset_launches()
+    try:
+        engine.sample(["", PROMPTS[0]], cfg_guidance=5.0, seed=SEED,
+                      resolution=res)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    n = {name: read() for name, read in reads.items()}
+    print(f"  {LIGHTNING_SOLVER} at w=5: refused ({refused!r}); launches {n}",
+          flush=True)
+    check(refused == "CFG should be turned off (cfg_guidance=1) in the"
+          " lightning version", f"w=5 not refused as the JAX engine does:"
+          f" {refused!r}")
+    check(not any(n.values()), f"w=5: kernels launched before the refusal {n}")
+    del engine, bundle
+    torch.cuda.empty_cache()
+    return launches, drift, seconds
+
+
 # name: (source, the TPU kernel it replaces, the path whose run counts its
 # launches).
 KERNEL_SOURCES = {
@@ -1930,9 +2242,22 @@ def main() -> None:
           f" --quant all and 1 {SDXL_EDIT_SOLVER} request in"
           f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    light_launches, light_drift, _ = phase_lightning(fa, tk, tc, card)
+    launches.update(light_launches)
+    drift[f"{LIGHTNING_MODEL} dense"] = light_drift
+    print(f"phase 10 ok: {LIGHTNING_MODEL} at {SDXL_RESOLUTION}^2 from a"
+          " single file through convert_checkpoint and from_pretrained (bit"
+          f" for bit), {LIGHTNING_SOLVER} w={LIGHTNING_GUIDANCE}"
+          f" {LIGHTNING_NFE} NFE: 3 exact and 1 --quant dense request, 1"
+          f" request each of {', '.join(LIGHTNING_SOLVERS)} in"
+          f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
-        summary = table.summary(name)
+        summary = table.summary(name, {LIGHTNING_MODEL: (
+            "sdxl", LIGHTNING_SITE_CALLS[name])}
+            if name in LIGHTNING_SITE_CALLS else None)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[path][name],
@@ -1944,7 +2269,11 @@ def main() -> None:
                       " request (in the slice that runs each) x time per"
                       " call; the same for plain_ms, bound_ms and"
                       " library_ms; by_model: the same per model's request"
-                      " (sd15, sd21_v, sdxl)",
+                      " (sd15, sd21_v, sdxl; sdxl_lightning: the sdxl shapes"
+                      " at the ddim_cfg++_lightning request's calls, its"
+                      " --quant dense request's for the int8 and packed"
+                      " kernels; sdxl_lightning_b1: the batch-1 rows of a"
+                      " ddim_lightning request, its decode not counted)",
             "by_model": summary["by_model"],
             "launches_by_path": {path: n[name] for path, n in launches.items()
                                  if name in n},

@@ -136,7 +136,12 @@ def test_main_path_plan_has_24_steps_at_25_nfe(engines):
 
 
 def test_sdxl_engine_rejects_lightning_and_sd_solvers(engines):
-    with pytest.raises(ValueError, match="ROADMAP item 1.4"):
-        DiffusionEngine(engines.bundle, "dpm++_2m_cfgpp_lightning")
+    """A Lightning solver is refused at w != 1 with the JAX engine's
+    message (tests/test_torch_port_lightning.py runs them at w=1); an SD
+    solver is no SDXL solver."""
+    engine = DiffusionEngine(engines.bundle, "dpm++_2m_cfgpp_lightning")
+    with pytest.raises(ValueError, match=r"CFG should be turned off "
+                       r"\(cfg_guidance=1\) in the lightning version"):
+        engine.sample(PROMPT, cfg_guidance=5.0, **request(engine.solver_name))
     with pytest.raises(ValueError, match="does not exist for family 'sdxl'"):
         DiffusionEngine(engines.bundle, "euler_a_cfg++")

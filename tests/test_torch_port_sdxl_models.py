@@ -52,15 +52,20 @@ def T(a):
 
 
 def jax_tiny_sdxl():
-    """The JAX tiny_sdxl bundle in f32, its weights made without compiling
-    the JAX initializers (which cost more than most of these tests): the
-    port's seeded ``random_init`` gives the diffusers-layout state dicts,
-    every UNet and text-encoder leaf is perturbed (flax's norm scales 1
-    and biases 0 would hide a mix-up), and the JAX package's own
-    checkpoint converter (``cfgpp_tpu/weights/convert.py``) makes the Flax
-    trees, held leaf for leaf to the structure the JAX modules' ``init``
-    traces.  The port's bundles are then loaded from these trees through
-    the weight bridge, strictly."""
+    return jax_tiny_bundle("tiny_sdxl")
+
+
+def jax_tiny_bundle(name):
+    """The JAX ``name`` bundle (tiny_sdxl or tiny_sd) in f32, its weights
+    made without compiling the JAX initializers (which cost more than most
+    of these tests): the port's seeded ``random_init`` gives the
+    diffusers-layout state dicts, every UNet and text-encoder leaf is
+    perturbed (flax's norm scales 1 and biases 0 would hide a mix-up), and
+    the JAX package's own checkpoint converter
+    (``cfgpp_tpu/weights/convert.py``) makes the Flax trees, held leaf for
+    leaf to the structure the JAX modules' ``init`` traces.  The port's
+    bundles are then loaded from these trees through the weight bridge,
+    strictly."""
     from cfgpp_tpu.configs import get_bundle_config
     from cfgpp_tpu.models import (AutoencoderKL, CLIPTextModel,
                                   UNet2DConditionModel)
@@ -68,8 +73,8 @@ def jax_tiny_sdxl():
                                            convert_vae)
     from cfgpp_tpu.weights.tokenizer import load_tokenizer
 
-    cfg = get_bundle_config("tiny_sdxl")
-    src = ModelBundle.random_init("tiny_sdxl", seed=0, dtype=torch.float32,
+    cfg = get_bundle_config(name)
+    src = ModelBundle.random_init(name, seed=0, dtype=torch.float32,
                                   device="cpu")
     rng = np.random.default_rng(1)
 
@@ -81,29 +86,36 @@ def jax_tiny_sdxl():
     f32 = dict(dtype=jnp.float32, param_dtype=jnp.float32)
     unet = UNet2DConditionModel(cfg.unet, **f32)
     vae = AutoencoderKL(cfg.vae, **f32)
-    text, text2 = (CLIPTextModel(cfg.text_encoder),
-                   CLIPTextModel(cfg.text_encoder_2))
+    text = CLIPTextModel(cfg.text_encoder)
     key, ids = jax.random.PRNGKey(0), jnp.zeros((1, 77), jnp.int32)
+    unet_args = [jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+                 jnp.zeros((1, 77, cfg.unet.cross_attention_dim))]
+    if cfg.text_encoder_2 is not None:
+        unet_args += [jnp.zeros((1, cfg.text_encoder_2.projection_dim)),
+                      jnp.zeros((1, 6))]
     trees = {
         "unet_params": (convert_unet(state(src.unet, True)), jax.eval_shape(
-            unet.init, key, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
-            jnp.zeros((1, 77, 80)), jnp.zeros((1, 48)), jnp.zeros((1, 6)))),
+            unet.init, key, *unet_args)),
         "vae_params": (convert_vae(state(src.vae, False)), jax.eval_shape(
             vae.init, key, jnp.zeros((1, 64, 64, 3)), key)),
         "text_params": (convert_clip_text(state(src.text_encoder, True)),
                         jax.eval_shape(text.init, key, ids)),
-        "text_params_2": (convert_clip_text(state(src.text_encoder_2, True)),
-                          jax.eval_shape(text2.init, key, ids)),
     }
+    text2 = tok2 = None
+    if cfg.text_encoder_2 is not None:
+        text2 = CLIPTextModel(cfg.text_encoder_2)
+        trees["text_params_2"] = (
+            convert_clip_text(state(src.text_encoder_2, True)),
+            jax.eval_shape(text2.init, key, ids))
+        tok2 = load_tokenizer(None, vocab_size=1000, eos_token_id=999,
+                              pad_token_id=0)
     for what, (tree, want) in trees.items():
         assert jax.tree.map(np.shape, tree) == jax.tree.map(
             lambda x: x.shape, want), what
     return JaxBundle(
         config=cfg, unet=unet, vae=vae, text_encoder=text,
         tokenizer=load_tokenizer(None, vocab_size=1000, eos_token_id=999),
-        text_encoder_2=text2,
-        tokenizer_2=load_tokenizer(None, vocab_size=1000, eos_token_id=999,
-                                   pad_token_id=0),
+        text_encoder_2=text2, tokenizer_2=tok2,
         **{k: jax.tree.map(np.float32, tree)
            for k, (tree, _) in trees.items()})
 

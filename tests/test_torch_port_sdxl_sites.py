@@ -157,12 +157,12 @@ def test_phase2_cases_cover_the_path():
 
 
 def test_cli_models_and_methods():
-    """The CLI offers the JAX CLI's SDXL models but sdxl_lightning (it
-    comes with --light_ckpt), defaults to the card, and takes the solvers
-    of the model's family."""
-    assert cli_common.SDXL_MODELS == tuple(m for m in SDXL_MODELS
-                                           if m != "sdxl_lightning")
-    assert cli_common.MODELS == cli_common.SD_MODELS + ("sdxl", "tiny_sdxl")
+    """The CLI offers the JAX CLI's SDXL models, sdxl_lightning among them
+    (with --ckpt_dir and --light_ckpt), defaults to the card, and takes
+    the solvers of the model's family, the Lightning ones included."""
+    assert cli_common.SDXL_MODELS == SDXL_MODELS
+    assert cli_common.MODELS == cli_common.SD_MODELS + (
+        "sdxl", "sdxl_lightning", "tiny_sdxl")
     parser = argparse.ArgumentParser()
     cli_common.add_common_args(parser)
     args = cli_common.parse_args(parser, ["--model", "sdxl", "--method",
@@ -171,10 +171,13 @@ def test_cli_models_and_methods():
     assert jax_bundle_config("sdxl").default_resolution == RES
     for model, method in (("sdxl", "euler_a"), ("sd15", "dpm++_2m_cfgpp_x"),
                           ("tiny_sdxl", "ddim_inversion_cfg++"),
-                          ("sdxl", "ddim_cfg++_lightning")):
+                          ("sd15", "ddim_cfg++_lightning")):
         with pytest.raises(SystemExit):
             cli_common.parse_args(parser, ["--model", model, "--method",
                                            method])
+    args = cli_common.parse_args(parser, ["--model", "sdxl", "--method",
+                                          "ddim_cfg++_lightning"])
+    assert args.method == "ddim_cfg++_lightning"
 
 
 def test_cli_tiny_sdxl_runs_without_jax(tmp_path):

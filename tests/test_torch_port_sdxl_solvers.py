@@ -3,8 +3,8 @@
 Plans are host numpy on both sides, so they are held equal array by array
 (dtype and value) at NFE 25 (the main path), 10 and 4.  The registry's
 SDXL specs are held equal field by field, plan function included, for
-every name that is not SDXL-Lightning; the 5 Lightning names raise an
-error that names the roadmap item they wait for.
+every name; the 5 SDXL-Lightning names are SDXL solvers only, as in JAX
+(tests/test_torch_port_lightning.py holds their plans and engine).
 """
 
 import numpy as np
@@ -41,12 +41,14 @@ def test_sdxl_plans_equal(name, nfe):
 
 
 def test_sdxl_list_is_the_jax_list_without_lightning():
+    """The SDXL list without its Lightning names is the JAX list without
+    them, and with them it is the JAX list."""
     assert len(LIGHTNING) == 5
-    assert sorted(LIGHTNING) == sorted(registry.LIGHTNING_SOLVERS)
-    assert registry.list_solvers("sdxl") == sorted(set(JAX_SDXL) -
-                                                   set(LIGHTNING))
-    # 7 solvers and the dpm++_2m_cfg++ alias
-    assert len(registry.list_solvers("sdxl")) == 8
+    assert sorted(set(registry.list_solvers("sdxl")) - set(LIGHTNING)) == \
+        sorted(set(JAX_SDXL) - set(LIGHTNING))
+    assert registry.list_solvers("sdxl") == JAX_SDXL
+    # 12 solvers and the dpm++_2m_cfg++ alias
+    assert len(registry.list_solvers("sdxl")) == 13
     assert registry.list_solvers("sd") == jax_registry.list_solvers("sd")
 
 
@@ -68,8 +70,17 @@ def test_sdxl_alias_is_the_same_spec():
 
 @pytest.mark.parametrize("name", LIGHTNING)
 def test_lightning_names_raise(name):
-    with pytest.raises(ValueError, match="SDXL-Lightning.*ROADMAP item 1.4"):
-        registry.get_solver_spec(name, "sdxl")
+    """Each Lightning spec equals JAX's (lightning, trailing spacing, its
+    plan function); the name raises in the SD family, as in JAX."""
+    want = jax_registry.get_solver_spec(name, "sdxl")
+    got = registry.get_solver_spec(name, "sdxl")
+    assert [getattr(got, f) for f in SPEC_FIELDS] == [
+        getattr(want, f) for f in SPEC_FIELDS]
+    assert got.lightning and got.timestep_spacing == "trailing"
+    assert got.plan_fn.__name__ == want.plan_fn.__name__
+    for table in (registry, jax_registry):
+        with pytest.raises(ValueError, match="does not exist"):
+            table.get_solver_spec(name, "sd")
 
 
 def test_unknown_names_and_families_raise():
