@@ -20,10 +20,18 @@ Layer map (bottom-up):
   solvers/    the SD and SDXL solvers' plans, steps, sampling and
               inversion loops
   engine/     ModelBundle + DiffusionEngine (tokenize -> encode -> solve ->
-              decode)
-  utils/      PNG output and input; roofline bounds of the kernels' work
+              decode; sample and the batched sample_batch) + callbacks
+  parallel/   one process per GPU: the rank's share of a global batch
+  utils/      PNG output (also on writer threads) and input; logging and
+              workdirs; roofline bounds of the kernels' work
   tools/      A/B timing and profiling scripts; the SGM inverse map
-  cli/        text_to_img, inversion, convert_checkpoint
+  cli/        text_to_img, inversion, text_to_mscoco, convert_checkpoint
 """
 
 __version__ = "0.1.0"
+from cfgpp_tpu_torch.engine import (ComposeCallback, DiffusionEngine,
+                                    ModelBundle, get_callback,
+                                    register_callback)
+
+__all__ = ["ModelBundle", "DiffusionEngine", "ComposeCallback", "get_callback",
+           "register_callback"]

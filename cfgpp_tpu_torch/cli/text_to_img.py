@@ -8,26 +8,38 @@ with ``--prompt_2``, ``--null_prompt_2`` and ``--clip_skip``; ``--model
 sdxl_lightning --ckpt_dir D --light_ckpt F --method ddim_cfg++_lightning
 --NFE 4 --cfg_guidance 1`` for SDXL-Lightning).  Weights come from
 ``--ckpt_dir`` and ``--light_ckpt`` (see ``cli/common.py``), else from a
-seed.  Writes ``<workdir>/result/generated.png``.
+seed.  Writes ``<workdir>/result/generated.png``; with ``--callbacks
+draw_tweedie draw_noisy`` also the decoded z0t / zt of every
+``--callback_frequency``-th step under ``<workdir>/record/``.
 """
 
 from __future__ import annotations
 
 import argparse
-from pathlib import Path
 
 from cfgpp_tpu_torch.cli.common import add_common_args, build_engine, parse_args
+from cfgpp_tpu_torch.engine.callbacks import ComposeCallback
 from cfgpp_tpu_torch.utils.img import save_image
+from cfgpp_tpu_torch.utils.log import create_workdir
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="cfgpp_tpu_torch text-to-image")
     add_common_args(parser, default_method="ddim", default_nfe=50)
+    parser.add_argument("--callbacks", type=str, nargs="*", default=None,
+                        help="e.g. draw_noisy draw_tweedie")
+    parser.add_argument("--callback_frequency", type=int, default=1)
     parser.add_argument("--prompt_2", type=str, default=None,
                         help="SDXL second-encoder prompt (defaults to --prompt)")
     parser.add_argument("--null_prompt_2", type=str, default=None)
     parser.add_argument("--clip_skip", type=int, default=None)
     args = parse_args(parser, argv)
+
+    workdir = create_workdir(args.workdir or "workdir/t2i")
+    callback = None
+    if args.callbacks:
+        callback = ComposeCallback(workdir=workdir, callbacks=args.callbacks,
+                                   frequency=args.callback_frequency)
 
     engine = build_engine(args)
     prompt_2 = None
@@ -39,8 +51,8 @@ def main(argv=None):
                            prompt_2=prompt_2,
                            cfg_guidance=args.cfg_guidance, seed=args.seed,
                            resolution=args.resolution,
-                           clip_skip=args.clip_skip)
-    out = Path(args.workdir or "workdir/t2i") / "result" / "generated.png"
+                           callback_fn=callback, clip_skip=args.clip_skip)
+    out = workdir / "result" / "generated.png"
     save_image(result.cpu().numpy(), out, normalize_img=True)
     print(f"saved {out}")
 

@@ -14,11 +14,17 @@ penultimate (or ``clip_skip``-chosen) hidden states are concatenated into
 the context; encoder 2's projected pooled output and the 6 micro-
 conditioning ids (``make_add_time_ids``) are the UNet's added conditioning,
 fused into the batch-2B pair as the context is.
+
+`sample` serves one request (its streams from the seed); `sample_batch`
+a batch of prompts with per-sample streams keyed by each sample's global
+index (MS-COCO eval generation); both assemble their inputs in `_run`.
+Callbacks (``engine/callbacks.py``) are replayed over the kept trajectory
+after the loop, or run inside it with ``unrolled=True``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +34,10 @@ from cfgpp_tpu_torch.engine.bundle import ModelBundle
 from cfgpp_tpu_torch.models.unet import precompute_cross_kv
 from cfgpp_tpu_torch.solvers.plans import plan_ddim_inversion
 from cfgpp_tpu_torch.solvers.registry import get_solver_spec
-from cfgpp_tpu_torch.solvers.sampler import (init_latent, run_inversion,
-                                             run_solver)
+from cfgpp_tpu_torch.solvers.sampler import (init_latent,
+                                             init_latent_per_sample,
+                                             run_inversion, run_solver,
+                                             run_solver_unrolled)
 
 
 def _stream_seed(seed: int, *tags: int) -> int:
@@ -37,6 +45,29 @@ def _stream_seed(seed: int, *tags: int) -> int:
     noise of a step, 2 = the encode draw), derived from the request's."""
     words = np.random.SeedSequence([seed % 2**64, *tags]).generate_state(2)
     return int(words[0]) << 31 | int(words[1]) >> 1
+
+
+def _sample_seed(seed: int, index: int, *tags: int) -> int:
+    """The seed of one random stream of sample ``index`` of a batch (tags:
+    0 zT, (1, step) the ancestral noise, 2 the encode draw), the
+    counterpart of the JAX engine's ``fold_in(fold_in(key, index), tag)``.
+    The spawn key puts it in another entropy pool than `_stream_seed`'s,
+    so a batch's streams never coincide with a request's."""
+    words = np.random.SeedSequence(seed % 2**64,
+                                   spawn_key=(index, *tags)).generate_state(2)
+    return int(words[0]) << 31 | int(words[1]) >> 1
+
+
+def _randn(shape, generator, dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
+    """A standard normal draw of ``shape`` from one generator, or from a
+    list with one generator per sample (row b from ``generator[b]``)."""
+    if isinstance(generator, torch.Generator):
+        return torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                           device=generator.device)
+    return torch.stack([torch.randn(tuple(shape[1:]), generator=g,
+                                    dtype=dtype, device=g.device)
+                        for g in generator])
 
 
 def _needs_branches(cfgpp: bool, w: float) -> Tuple[bool, bool]:
@@ -191,16 +222,22 @@ class DiffusionEngine:
         imgs = [self.bundle.vae.decode(zi[None] / scale) for zi in z]
         return (torch.cat(imgs).float() / 2.0 + 0.5).clamp(0.0, 1.0)
 
-    def _encode(self, img: torch.Tensor, generator: torch.Generator
-                ) -> torch.Tensor:
+    def _encode(self, img: torch.Tensor, generator) -> torch.Tensor:
         """VAE encode (f32 compute: it feeds the inversion's source latent)
-        and the reparameterized draw from ``generator``, times the VAE's
-        scaling factor."""
+        and the reparameterized draw from ``generator`` (one for the batch,
+        or a list with one per sample), times the VAE's scaling factor."""
         scale = self.bundle.config.vae.scaling_factor
         mean, logvar = self.bundle.vae.encode(img)
-        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                            device=mean.device)
+        noise = _randn(mean.shape, generator, mean.dtype)
         return (mean + torch.exp(0.5 * logvar) * noise) * scale
+
+    def decode_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The ``decode`` handed to callbacks: latents [B, h, w, 4] ->
+        float32 images in [0, 1] on the device, decoded image by image."""
+        def decode(z: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return self._decode(z)
+        return decode
 
     @staticmethod
     def _to_uint8(img: torch.Tensor) -> torch.Tensor:
@@ -231,6 +268,8 @@ class DiffusionEngine:
         crops_coords_top_left: Tuple[int, int] = (0, 0),
         target_size: Optional[Tuple[int, int]] = None,
         clip_skip: Optional[int] = None,
+        callback_fn: Optional[Callable] = None,
+        unrolled: bool = False,
     ):
         """Generate images.  ``prompt`` is [null, cond], or [null, src, tgt]
         for edit solvers; each conditional entry may be a list of B strings,
@@ -251,12 +290,135 @@ class DiffusionEngine:
         latent_diffusion.py:195-197: the source prompt serves as the null
         prompt at w=1, a single-branch forward).
 
+        ``callback_fn(step, t, {"z0t", "zt", "decode"})`` (e.g. a
+        `ComposeCallback`): by default the loop keeps the trajectory and the
+        callback is replayed over it after the loop, so what it returns is
+        ignored; with ``unrolled=True`` it runs inside the loop and the
+        latents it returns feed the next step (no trajectory then).
+
         zT, the ancestral solvers' per-step noise and the encode draw come
         from three generators on the device derived from ``seed`` (their
         numbers differ from jax.random's).  Parity hooks replace them:
         ``init_latent_override`` (zT, [B, h, w, 4]), ``noise_override`` (the
         per-step noise, [n_steps, B, h, w, 4]) and ``src_latent_override``
         (the encoded source latent, [B, h, w, 4])."""
+        conds = prompt[1:3] if self.spec.edit else prompt[1:2]
+        batch = max(len(p) if isinstance(p, (list, tuple)) else 1
+                    for p in conds)
+        slots = self._slots(conds, batch, "prompt lists must share one batch "
+                            "size")
+        null_2, slots_2 = prompt[0], slots
+        if prompt_2 is not None:
+            null_2 = prompt_2[0]
+            slots_2 = self._slots(
+                prompt_2[1:3] if self.spec.edit else prompt_2[1:2], batch,
+                "prompt_2 lists must share the prompt batch size")
+        img, traj = self._run(
+            nulls=(prompt[0], null_2), slots=slots, slots_2=slots_2,
+            batch=batch, cfg_guidance=cfg_guidance, seed=seed,
+            sample_indices=None, resolution=resolution, src_img=src_img,
+            init_latent_override=init_latent_override,
+            noise_override=noise_override,
+            src_latent_override=src_latent_override, latent_init=latent_init,
+            original_size=original_size,
+            crops_coords_top_left=crops_coords_top_left,
+            target_size=target_size, clip_skip=clip_skip,
+            callback_fn=callback_fn, unrolled=unrolled,
+            return_trajectory=return_trajectory)
+        return (img, traj) if return_trajectory else img
+
+    @torch.inference_mode()
+    def sample_batch(
+        self,
+        null_prompt: str,
+        prompts: Sequence[str],
+        cfg_guidance: float = 7.5,
+        seed: int = 42,
+        resolution: Optional[int] = None,
+        sample_indices: Optional[Sequence[int]] = None,
+        null_prompt_2: Optional[str] = None,
+        prompts_2: Optional[Sequence[str]] = None,
+        original_size: Optional[Tuple[int, int]] = None,
+        crops_coords_top_left: Tuple[int, int] = (0, 0),
+        target_size: Optional[Tuple[int, int]] = None,
+        as_numpy: bool = True,
+        to_uint8: bool = False,
+        src_imgs=None,
+        src_prompts: Optional[Sequence[str]] = None,
+        callback_fn: Optional[Callable] = None,
+        init_latent_override=None,
+        noise_override=None,
+        src_latent_override=None,
+    ):
+        """Batched generation, counterpart of the JAX engine's
+        ``sample_batch``: B prompts under one null prompt as one batch (the
+        reference's serial MS-COCO loop, examples/text_to_mscoco.py:54-62,
+        made batched).  Inversion and edit solvers take ``src_imgs`` [B, H,
+        W, 3] in [-1, 1], edit solvers also ``src_prompts`` (``prompts``
+        are then the targets).  SDXL: ``prompts_2`` / ``null_prompt_2``
+        feed encoder 2 (default: ``prompts`` / ``null_prompt``).
+
+        Sample b's zT, ancestral noise and encode draw come from its own
+        generators, seeded from (``seed``, its GLOBAL index
+        ``sample_indices[b]`` (default b), the stream), so an image does not
+        depend on the batch it ran in nor on the process that ran it; these
+        streams never coincide with `sample`'s.  Callbacks get the indices
+        as ``sample_indices`` and write one record tree per sample.  The
+        JAX engine's ``mesh=`` has no counterpart: in one process per GPU
+        the caller passes each rank its share (``parallel.shard_indices``).
+
+        ``to_uint8`` converts on the device (``x * 255 + 0.5``, as the JAX
+        engine does); ``as_numpy=False`` returns the device tensor without
+        waiting for the device, else a numpy array.  The parity hooks are
+        `sample`'s."""
+        if self.spec.edit and src_prompts is None:
+            raise ValueError(f"edit solver {self.solver_name} needs src_prompts")
+        batch = len(prompts)
+        indices = list(range(batch)) if sample_indices is None else [
+            int(i) for i in sample_indices]
+        if len(indices) != batch:
+            raise ValueError(f"{len(indices)} sample_indices for {batch} prompts")
+        slots = self._slots([src_prompts, prompts] if self.spec.edit
+                            else [prompts], batch,
+                            "src_prompts and prompts must share one batch size")
+        null_2, slots_2 = null_prompt, slots
+        if prompts_2 is not None or null_prompt_2 is not None:
+            null_2 = null_prompt if null_prompt_2 is None else null_prompt_2
+            ps2 = prompts if prompts_2 is None else prompts_2
+            slots_2 = self._slots([src_prompts, ps2] if self.spec.edit
+                                  else [ps2], batch,
+                                  "prompts_2 must share the prompt batch size")
+        img, _ = self._run(
+            nulls=(null_prompt, null_2), slots=slots, slots_2=slots_2,
+            batch=batch, cfg_guidance=cfg_guidance, seed=seed,
+            sample_indices=indices, resolution=resolution, src_img=src_imgs,
+            init_latent_override=init_latent_override,
+            noise_override=noise_override,
+            src_latent_override=src_latent_override, latent_init=None,
+            original_size=original_size,
+            crops_coords_top_left=crops_coords_top_left,
+            target_size=target_size, clip_skip=None, callback_fn=callback_fn,
+            unrolled=False, return_trajectory=False)
+        if to_uint8:
+            img = self._to_uint8(img)
+        return img.cpu().numpy() if as_numpy else img
+
+    def _run(self, *, nulls: Tuple[str, str], slots: List[List[str]],
+             slots_2: List[List[str]], batch: int, cfg_guidance: float,
+             seed: int, sample_indices: Optional[List[int]],
+             resolution: Optional[int], src_img, init_latent_override,
+             noise_override, src_latent_override, latent_init: Optional[str],
+             original_size, crops_coords_top_left, target_size,
+             clip_skip: Optional[int], callback_fn: Optional[Callable],
+             unrolled: bool, return_trajectory: bool):
+        """The one runner behind `sample` and `sample_batch` (the JAX
+        engine's ``_run``): validation, text embedding, zT (from the
+        inversion, an override or the streams), the solver loop, the decode
+        and the callback replay.  ``nulls``: the null prompt of encoder 1
+        and of encoder 2; ``slots`` / ``slots_2``: each conditional entry
+        as ``batch`` prompts, per encoder; ``sample_indices``: None for a
+        request's streams from ``seed``, else the global index of each
+        sample (`sample_batch`).  Returns (images, trajectory or None)."""
         sdxl = self.bundle.family == "sdxl"
         if self.spec.lightning:
             if float(cfg_guidance) != 1.0:
@@ -274,17 +436,11 @@ class DiffusionEngine:
             raise ValueError(f"unknown latent_init {latent_init!r}")
         if latent_init == "npi" and not self.spec.inversion:
             raise ValueError("latent_init='npi' requires an inversion solver")
-        conds = prompt[1:3] if self.spec.edit else prompt[1:2]
-        batch = max(len(p) if isinstance(p, (list, tuple)) else 1
-                    for p in conds)
-        slots = self._slots(conds, batch, "prompt lists must share one batch "
-                            "size")
-        null_2, slots_2 = prompt[0], slots
-        if prompt_2 is not None:
-            null_2 = prompt_2[0]
-            slots_2 = self._slots(
-                prompt_2[1:3] if self.spec.edit else prompt_2[1:2], batch,
-                "prompt_2 lists must share the prompt batch size")
+        if return_trajectory and unrolled:
+            raise ValueError(
+                "return_trajectory is not available in unrolled mode (the "
+                "unrolled runner exists for MUTATING callbacks and keeps no "
+                "trajectory); drop unrolled=True to capture one")
         src = None
         if self.spec.inversion:
             if src_img is None:
@@ -299,7 +455,7 @@ class DiffusionEngine:
                 batch, original_size or (res, res), crops_coords_top_left,
                 target_size or (res, res)), device=self.device)
 
-        uc, pool_uc = self.text_embed([prompt[0]] * batch, [null_2] * batch,
+        uc, pool_uc = self.text_embed([nulls[0]] * batch, [nulls[1]] * batch,
                                       clip_skip)
         cs, pool_cs = zip(*(self.text_embed(s, s2, clip_skip)
                             for s, s2 in zip(slots, slots_2)))
@@ -319,9 +475,8 @@ class DiffusionEngine:
             if src_latent_override is not None:
                 z0 = self._as_f32(src_latent_override)
             else:
-                gen = torch.Generator(device=self.device).manual_seed(
-                    _stream_seed(seed, 2))
-                z0 = self._encode(src, gen)
+                z0 = self._encode(src, self._generators(seed, sample_indices,
+                                                        2))
             added_uc_inv, added_c_inv = added_for(pool_uc, pool_cs[0])
             if latent_init == "npi":
                 inv_eps = self._make_eps_fn(cs[0], cs[0], 1.0, added_c_inv,
@@ -336,16 +491,27 @@ class DiffusionEngine:
         elif init_latent_override is not None:
             zT = self._as_f32(init_latent_override)
         else:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            zT = init_latent(self.plan, gen, self.latent_shape(batch, res))
+            gens = self._generators(seed, sample_indices, 0)
+            shape = self.latent_shape(batch, res)
+            zT = (init_latent(self.plan, gens, shape) if sample_indices is None
+                  else init_latent_per_sample(self.plan, gens, shape))
 
-        final, traj = run_solver(self.spec, self.plan, eps_fn, zT,
-                                 cfg_guidance,
-                                 noise_fn=self._noise_fn(seed, zT,
-                                                         noise_override),
-                                 return_trajectory=return_trajectory)
+        noise_fn = self._noise_fn(seed, zT, noise_override, sample_indices)
+        traj = None
+        if unrolled:
+            final = run_solver_unrolled(self.spec, self.plan, eps_fn, zT,
+                                        cfg_guidance, noise_fn=noise_fn,
+                                        callback=callback_fn,
+                                        decode_fn=self.decode_fn())
+        else:
+            final, traj = run_solver(
+                self.spec, self.plan, eps_fn, zT, cfg_guidance,
+                noise_fn=noise_fn,
+                return_trajectory=return_trajectory or callback_fn is not None)
         img = self._decode(final)
-        return (img, traj) if return_trajectory else img
+        if callback_fn is not None and not unrolled:
+            self._replay_callbacks(callback_fn, traj, sample_indices)
+        return img, traj
 
     @staticmethod
     def _slots(conds, batch: int, error: str) -> List[List[str]]:
@@ -356,10 +522,25 @@ class DiffusionEngine:
             raise ValueError(error)
         return slots
 
-    def _noise_fn(self, seed: int, zT: torch.Tensor, noise_override):
+    def _generators(self, seed: int, sample_indices: Optional[List[int]],
+                    tag: int, *more: int):
+        """The generator(s) of one random stream of a run.  ``tag``: 0 zT,
+        1 the ancestral noise of step ``more[0]``, 2 the encode draw.  A
+        request (``sample_indices`` None) has one generator, seeded with
+        ``seed`` for zT and from (seed, tag, step) otherwise; a batch of
+        `sample_batch` has one per sample, seeded from (seed, the sample's
+        global index, tag, step)."""
+        if sample_indices is None:
+            s = seed if tag == 0 else _stream_seed(seed, tag, *more)
+            return torch.Generator(device=self.device).manual_seed(s)
+        return [torch.Generator(device=self.device).manual_seed(
+            _sample_seed(seed, i, tag, *more)) for i in sample_indices]
+
+    def _noise_fn(self, seed: int, zT: torch.Tensor, noise_override,
+                  sample_indices: Optional[List[int]] = None):
         """The ancestral solvers' ``noise_fn(i, like)``: step i's draw from
-        a generator seeded from (seed, i), so that it does not depend on the
-        steps before it; or row i of ``noise_override``."""
+        its own generator(s) (`_generators` tag 1), so that it does not
+        depend on the steps before it; or row i of ``noise_override``."""
         if not self.plan.needs_noise:
             return None
         if noise_override is not None:
@@ -369,10 +550,21 @@ class DiffusionEngine:
                 raise ValueError(f"noise_override: shape {tuple(noise.shape)},"
                                  f" expected {want}")
             return lambda i, like: noise[i]
-        gen = torch.Generator(device=self.device)
+        return lambda i, like: _randn(like.shape, self._generators(
+            seed, sample_indices, 1, i), like.dtype)
 
-        def noise_fn(i, like):
-            gen.manual_seed(_stream_seed(seed, 1, i))
-            return torch.randn(like.shape, generator=gen, dtype=like.dtype,
-                               device=like.device)
-        return noise_fn
+    def _replay_callbacks(self, callback_fn: Callable, traj,
+                          sample_indices: Optional[List[int]] = None) -> None:
+        """Calls ``callback_fn(step, t, {"z0t", "zt", "decode"})`` over the
+        kept trajectory, after the loop (what it returns is ignored);
+        ``sample_indices`` (a batch of `sample_batch`) is passed on, so the
+        draw callbacks write one record tree per sample
+        (examples/text_to_mscoco.py:43-45)."""
+        z0s, zts = traj
+        decode = self.decode_fn()
+        ts = self.plan.coeffs["t"]
+        for i in range(self.plan.n_steps):
+            kw = {"z0t": z0s[i], "zt": zts[i], "decode": decode}
+            if sample_indices is not None:
+                kw["sample_indices"] = sample_indices
+            callback_fn(i, int(ts[i]), kw)

@@ -2,7 +2,11 @@
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` over the plan rows
 becomes a Python loop over the same rows, with the same body, carry and
-extract logic per solver kind.
+extract logic per solver kind.  Two loops share that body: `run_solver`
+(optionally keeping the per-step (z0t, zt) trajectory, which the engine
+replays to callbacks after the loop) and `run_solver_unrolled`, which calls
+a callback inside the loop and feeds the latents it returns back in, as
+the reference's callbacks can (``latent_diffusion.py:288-294``).
 
 Ancestral solvers draw per-step noise through ``noise_fn(i, like)``, which
 returns step i's standard normal draw shaped like ``like``; step i's noise
@@ -33,6 +37,21 @@ def init_latent(plan: SolverPlan, generator: torch.Generator,
     (:201-205)."""
     return torch.randn(tuple(shape), generator=generator, dtype=dtype,
                        device=generator.device) * plan.init_scale
+
+
+def init_latent_per_sample(plan: SolverPlan,
+                           generators: Sequence[torch.Generator],
+                           shape: Sequence[int],
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Batch init with one generator per sample: sample i's latent depends
+    only on ``generators[i]``, not on the batch size or its position in the
+    batch; scaled by plan.init_scale as `init_latent` is."""
+    if len(generators) != shape[0]:
+        raise ValueError(f"{len(generators)} generators for a batch of"
+                         f" {shape[0]}")
+    return torch.stack([torch.randn(tuple(shape[1:]), generator=g,
+                                    dtype=dtype, device=g.device)
+                        for g in generators]) * plan.init_scale
 
 
 def _device_coeffs(plan: SolverPlan, device: torch.device):
@@ -119,6 +138,37 @@ def run_solver(spec: SolverSpec, plan: SolverPlan, eps_fn,
     if return_trajectory:
         return final, (torch.stack(z0s), torch.stack(zts))
     return final, None
+
+
+def run_solver_unrolled(spec: SolverSpec, plan: SolverPlan, eps_fn,
+                        zT: torch.Tensor, cfg_guidance: float,
+                        noise_fn: Optional[NoiseFn] = None,
+                        callback: Optional[Callable] = None,
+                        decode_fn: Optional[Callable] = None) -> torch.Tensor:
+    """`run_solver` with ``callback(step, t, {"z0t", "zt", "decode"})``
+    called after every step; the (possibly changed) latents it returns
+    feed the next step: the running latent becomes its ``zt`` (DPM++ 2M
+    keeps its history term), and with plan.final == "z0" its last ``z0t``
+    is the result.  Returns the final latent."""
+    _check_guidance(spec, plan, cfg_guidance, noise_fn)
+    coeffs = _device_coeffs(plan, zT.device)
+    w = torch.tensor(cfg_guidance, dtype=torch.float32, device=zT.device)
+    body, carry0, extract = _make_body(spec, eps_fn, w, noise_fn)
+
+    carry, z0t = carry0(zT), zT
+    for i in range(plan.n_steps):
+        carry, (z0t, zt) = body(carry, i, {k: v[i] for k, v in coeffs.items()})
+        if callback is not None:
+            kw = callback(i, int(plan.coeffs["t"][i]),
+                          {"z0t": z0t, "zt": zt, "decode": decode_fn})
+            z0t, zt = kw["z0t"], kw["zt"]
+            carry = (zt, carry[1]) if spec.kind == "dpm2m" else zt
+    x_final = extract(carry)
+
+    if spec.kind == "dpm2s":
+        x_final, _ = steps.dpmpp_2s_tail_step(eps_fn, w, plan.tail_coeffs,
+                                              x_final, cfgpp=spec.cfgpp)
+    return z0t if plan.final == "z0" else x_final
 
 
 def run_inversion(spec: SolverSpec, plan: SolverPlan, eps_fn,

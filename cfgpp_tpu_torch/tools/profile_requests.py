@@ -1,6 +1,7 @@
 """Where one request's device time goes, per form, on one GPU.
 
     python3 -m cfgpp_tpu_torch.tools.profile_requests [--model sd21_v]
+    python3 -m cfgpp_tpu_torch.tools.profile_requests --model sdxl --batch 1 8
 
 Per form (exact, ``--quant dense``, ``--quant all``): one warm-up request,
 three timed ones (host clock around ``DiffusionEngine.sample`` and
@@ -15,6 +16,12 @@ w=1, 4 NFE for ``sdxl_lightning`` (the reference's Lightning command,
 README.md:70-74); cuDNN and cuBLAS TF32 off, as
 ``chip_smoke.py`` runs them.  Prints the card's name and power limit, then
 one JSON line per form.
+
+``--batch B [B ...]``: the MS-COCO eval command instead
+(``cli/text_to_mscoco.py``; ``ddim_cfg++`` at lambda=0.6, 50 NFE, exact),
+each request one ``sample_batch`` of B prompts with per-sample streams and
+uint8 images on the device, as that CLI runs it; per batch size one JSON
+line, with img/s and device seconds per image beside the busy share.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ REQUESTS = 3
 # model or, failing that, family: (solver, NFE, guidance)
 OP_POINTS = {"sd": ("ddim_cfg++", 50, 0.6), "sdxl": ("dpm++_2m_cfgpp", 25, 5.0),
              "sdxl_lightning": ("ddim_cfg++_lightning", 4, 1.0)}
+MSCOCO_OP_POINT = ("ddim_cfg++", 50, 0.6)      # README's MS-COCO command
 
 
 def card() -> str:
@@ -42,22 +50,29 @@ def card() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def one(engine, res: int, w: float) -> float:
+def one(engine, res: int, w: float, batch=None) -> float:
+    """Seconds of one request: ``sample`` of one prompt, or with ``batch``
+    one ``sample_batch`` of that many prompts."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.sample(["", PROMPT], cfg_guidance=w, seed=42, resolution=res)
+    if batch is None:
+        engine.sample(["", PROMPT], cfg_guidance=w, seed=42, resolution=res)
+    else:
+        engine.sample_batch("", [f"{PROMPT}, {i}" for i in range(batch)],
+                            cfg_guidance=w, seed=42, resolution=res,
+                            as_numpy=False, to_uint8=True)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def device_split(engine, res: int, w: float, top: int = 12) -> dict:
+def device_split(engine, res: int, w: float, batch=None, top: int = 12) -> dict:
     """Device seconds of one profiled request, in all and by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        one(engine, res, w)
+        one(engine, res, w, batch)
     by_name = collections.Counter()
     events = 0
     for e in prof.events():
@@ -71,6 +86,8 @@ def device_split(engine, res: int, w: float, top: int = 12) -> dict:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="sd21_v")
+    p.add_argument("--batch", type=int, nargs="+", default=None,
+                   help="sample_batch sizes to time at the MS-COCO command")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_requests: needs a CUDA device")
@@ -83,6 +100,22 @@ def main(argv=None) -> None:
     bundle = ModelBundle.random_init(args.model, seed=0, dtype=torch.bfloat16,
                                      device="cuda")
     res = bundle.config.default_resolution
+    if args.batch:
+        solver, nfe, w = MSCOCO_OP_POINT
+        engine = DiffusionEngine(bundle, solver, nfe=nfe)
+        for batch in args.batch:
+            one(engine, res, w, batch)
+            secs = [one(engine, res, w, batch) for _ in range(REQUESTS)]
+            med = statistics.median(secs)
+            split = device_split(engine, res, w, batch)
+            print(json.dumps({
+                "model": args.model, "form": "exact", "resolution": res,
+                "solver": solver, "nfe": nfe, "guidance": w, "tf32": False,
+                "card": name, "batch": batch, "s_per_batch": secs,
+                "median_s": med, "images_per_s": batch / med,
+                "device_s_per_image": split["device_s"] / batch,
+                "busy_share": split["device_s"] / med, **split}), flush=True)
+        return
     solver, nfe, w = OP_POINTS.get(args.model, OP_POINTS[bundle.family])
     for form in FORMS:
         b = bundle if form == "exact" else bundle.quantized(form)

@@ -1,16 +1,22 @@
 """Image IO helpers (host side), counterpart of the parts of
-``cfgpp_tpu/utils/img.py`` that the engine and the CLIs need.
+``cfgpp_tpu/utils/img.py`` that the engine and the CLIs need, and of
+``cfgpp_tpu/native``'s `AsyncPngWriter`.
 
 PNGs are written and read with the standard library's zlib, so saving and
 loading an image needs no imaging package.  `load_image` reads 8-bit,
 non-interlaced greyscale, RGB and RGBA PNGs; any other format raises.
+`AsyncPngWriter` encodes and writes on worker threads: ``zlib.compress``
+and the file write release the GIL, so the threads overlap each other and
+the caller without a native library.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
+from typing import List, Tuple
 
 import numpy as np
 
@@ -52,17 +58,97 @@ def _png_bytes(rgb: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def save_image(img, path, normalize_img: bool = False) -> None:
-    """Save one float image in [0, 1] ([1, H, W, 3] or [H, W, 3]) as PNG."""
+def _grid(imgs: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
+    """[B, H, W, C] -> one grid image [H', W', C], ``nrow`` images a row,
+    ``pad`` zero pixels between them (torchvision's ``make_grid`` without
+    the outer border, as ``cfgpp_tpu/utils/img.py:_grid``)."""
+    b, h, w, c = imgs.shape
+    ncol = min(nrow, b)
+    nr = (b + ncol - 1) // ncol
+    grid = np.zeros((nr * (h + pad) - pad, ncol * (w + pad) - pad, c),
+                    imgs.dtype)
+    for i in range(b):
+        r, col = divmod(i, ncol)
+        grid[r * (h + pad): r * (h + pad) + h,
+             col * (w + pad): col * (w + pad) + w] = imgs[i]
+    return grid
+
+
+def save_image(img, path, normalize_img: bool = False, nrow: int = 8) -> None:
+    """Save float images in [0, 1] as one PNG: [H, W, 3], or [B, H, W, 3]
+    with a batch of more than one written as a grid of ``nrow`` a row."""
     arr = np.asarray(img, np.float32)
     if arr.ndim == 4:
-        if arr.shape[0] != 1:
-            raise ValueError(f"save_image takes one image; got {arr.shape}")
-        arr = arr[0]
+        arr = _grid(arr, nrow=nrow) if arr.shape[0] > 1 else arr[0]
     if normalize_img:
         arr = normalize(arr)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_bytes(_png_bytes(to_uint8(arr)))
+
+
+def _rgb_u8(img: np.ndarray) -> np.ndarray:
+    """float [H, W, 3] in [0, 1], or uint8 -> contiguous uint8 RGB."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = to_uint8(arr)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        raise ValueError(f"expected an [H, W, 3] image; got {arr.shape}")
+    return np.ascontiguousarray(arr)
+
+
+class AsyncPngWriter:
+    """PNG writes on worker threads.  `submit` copies the pixels and
+    returns; `wait` blocks until every write submitted so far has ended and
+    returns the number of failed writes since the writer was made (each
+    failure's (path, exception) is in ``errors``); `close` waits and stops
+    the threads, and may be called again; the writer is a context manager.
+
+    ``submit(path, img, ready=...)`` takes pixels that are still on their
+    way, e.g. a pinned host buffer a device copy writes into: the worker
+    calls ``ready.synchronize()`` (a ``torch.cuda.Event`` recorded after the
+    copy) before it reads them, and the caller keeps the buffer untouched
+    until then.  A failed write (including the parent directory's
+    creation) is counted, never dropped."""
+
+    def __init__(self, n_threads: int = 4):
+        self._pool = ThreadPoolExecutor(n_threads, thread_name_prefix="png")
+        self._pending: List[Tuple[Path, Future]] = []
+        self.errors: List[Tuple[Path, BaseException]] = []
+        self._closed = False
+
+    def submit(self, path, img, ready=None) -> None:
+        path = Path(path)
+        pixels = img if ready is not None else _rgb_u8(img).copy()
+        self._pending.append(
+            (path, self._pool.submit(self._write, path, pixels, ready)))
+
+    @staticmethod
+    def _write(path: Path, pixels, ready) -> None:
+        if ready is not None:
+            ready.synchronize()
+        data = _png_bytes(_rgb_u8(pixels))
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+
+    def wait(self) -> int:
+        pending, self._pending = self._pending, []
+        for path, future in pending:
+            err = future.exception()
+            if err is not None:
+                self.errors.append((path, err))
+        return len(self.errors)
+
+    def close(self) -> None:
+        if not self._closed:
+            self.wait()
+            self._pool.shutdown(wait=True)
+            self._closed = True
+
+    def __enter__(self) -> "AsyncPngWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def _unfilter_rows(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:

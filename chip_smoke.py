@@ -31,7 +31,10 @@ Phases, one status line each; any failure exits non-zero:
    channels, the 16 distinct shapes of the 35 admitted 3x3 convs, 128-wide
    latent rows among them, and the int8 score at both levels); then the
    level-1 and level-2 self- and cross-attention at batch 1 (phase 10's
-   single-branch Lightning forms), with the grid the kernel picks there.
+   single-branch Lightning forms), with the grid the kernel picks there;
+   then the same sites at batch 16 (phase 11's UNet calls: 8 prompts, cond
+   and uncond) with the grid, and rows 0-1 and 14-15 of each batch-16 call
+   bit for bit a batch-2 call on those rows.
    Each model's rows keep their own per-request sums.  The int8
    kernels are also held stage by stage: their int8 rows (conv: windows,
    attention: q and k) and scales against the plain quantizers, the
@@ -125,11 +128,33 @@ Phases, one status line each; any failure exits non-zero:
    (1 for the CFG forms at w=1), and w=5 refused with the JAX engine's
    message before any launch; s/image and peak device memory of each.  Both
    files are deleted.
-11. summary: the run's wall time, a JSON line of the kernels
-   (``launches_by_path`` with the sd21_v, sdxl and sdxl_lightning runs;
-   ``by_model``: each model's per-request sums, ``sdxl_lightning`` from the
-   sdxl rows at the Lightning calls), then the result line ``{"ok": true,
-   "device": {...}}``.
+11. MS-COCO eval generation: a seeded random ``sdxl`` bundle (bf16) made
+   by the CLI's ``build_engine`` and shared by the CLI runs of this phase.
+   The README's command through ``python -m
+   cfgpp_tpu_torch.cli.text_to_mscoco`` (``main``): ``ddim_cfg++`` at
+   lambda=0.6, 50 NFE, ``--batch_size 8`` (UNet batch 16) on 10 prompts the
+   phase writes: files 00000-00009.png, each read back as a 1024^2 RGB
+   image, none for the padded slots, ``num_images`` 10, exactly 2 x (50 x
+   140 + 8) attention launches, img/s, each batch's seconds and the peak
+   device memory; ``--resume`` after 00009.png is deleted (the first
+   batch's files untouched, 7008 launches, ``num_images`` 2); index 9
+   drawn alone by ``sample_batch`` against the batch-8 image (rel-L2 within
+   phase 3's bound, and the largest uint8 difference); ranks 0 and 1 of 2
+   (``RANK``/``WORLD_SIZE``, one after the other on the one card) at
+   ``--num_prompts 2 --batch_size 2``, each writing its one image, held
+   against the batch-8 run's by the same bound; then ``text_to_img`` with
+   ``--callbacks draw_tweedie draw_noisy --callback_frequency 10`` (the 6
+   PNGs of each record directory named by the JAX rule, 7001 + 12
+   launches), and the same request without callbacks, with them fused and
+   unrolled (bit for bit, or within the spread of two runs of one
+   request), and with a callback that halves zt at step 0 (it changes the
+   image unrolled, not fused).
+12. summary: the run's wall time, a JSON line of the kernels
+   (``launches_by_path`` with the sd21_v, sdxl, sdxl_lightning and MS-COCO
+   runs; ``by_model``: each model's per-request sums, ``sdxl_lightning``
+   from the sdxl rows at the Lightning calls, ``sdxl_mscoco_b16`` per
+   batch of 8 images), then the result line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device, or outside the repository, it prints no result and
 exits non-zero.
@@ -594,11 +619,53 @@ LIGHTNING_SITE_CALLS = {
 LIGHTNING_B1_ATTENTION_CASES = sdxl_cases(
     LIGHTNING_CALLS["ddim_lightning"], batch=1,
     tag="sdxl_lightning batch 1")[0][:-1]
+# Phase 11: MS-COCO eval generation, the README's command (README.md:61-63)
+# through cli/text_to_mscoco.py on sdxl at 1024^2: ddim_cfg++ at lambda=0.6,
+# 50 NFE, --batch_size 8, so every UNet call is batch 16 (the uncond and
+# cond halves of 8 prompts); 10 prompts make two batches, the second
+# padded from 2 to 8.
+MSCOCO_SOLVER = "ddim_cfg++"
+MSCOCO_GUIDANCE = 0.6
+MSCOCO_NFE = 50
+MSCOCO_BATCH = 8
+MSCOCO_PROMPTS = (
+    "a man riding a wave on top of a surfboard",
+    "a plate of food with broccoli and rice",
+    "a red double decker bus driving down a street",
+    "two giraffes standing next to each other in a field",
+    "a cat sitting on a laptop keyboard",
+    "a kitchen with wooden cabinets and a white stove",
+    "a group of people flying kites on a beach",
+    "a train traveling down tracks next to a forest",
+    "a bowl of fruit on a table near a window",
+    "a small airplane parked on a runway at dusk",
+)
+# flash_attention_hd per batch: 140 sites a UNet call, one d=512 decode
+# attention per image (padded slots are decoded too).
+MSCOCO_LAUNCHES_PER_BATCH = MSCOCO_NFE * SDXL_SITES_PER_CALL + MSCOCO_BATCH
+# --callbacks draw_tweedie draw_noisy at --callback_frequency 10 fire at
+# steps 0, 9, ..., 49; each firing decodes one image per callback.
+CALLBACK_FREQUENCY = 10
+CALLBACK_STEPS = tuple(i for i in range(MSCOCO_NFE)
+                       if i == 0 or (i + 1) % CALLBACK_FREQUENCY == 0)
+CALLBACK_LAUNCHES = (MSCOCO_NFE * SDXL_SITES_PER_CALL + 1
+                     + 2 * len(CALLBACK_STEPS))
+# An image drawn at batch 8 against the same index drawn alone (or by
+# another rank): cuDNN's convs and cuBLAS's GEMMs may pick other algorithms
+# at another batch, so a whole request is held by phase 3's UNet bound.
+INVARIANCE_REL_L2_TOL = MODEL_REL_L2_TOL
+# Phase 2's rows at UNet batch 16: sums per batch of 8 images (50 UNet
+# calls, 8 decodes).
+MSCOCO_B16_ATTENTION_CASES = sdxl_cases(
+    MSCOCO_NFE, batch=2 * MSCOCO_BATCH, tag="sdxl mscoco b16")[0][:-1] + [
+    ("sdxl mscoco b16 vae mid self (one per image)", (1, 16384, 512), 16384,
+     1, None, MSCOCO_BATCH)]
 # Each kind of phase-2 row: (model, its cases) in table order.
 CASES = {
     "attention": (("sd15", ATTENTION_CASES), ("sd21_v", SD2_ATTENTION_CASES),
                   ("sdxl", SDXL_ATTENTION_CASES),
-                  ("sdxl_lightning_b1", LIGHTNING_B1_ATTENTION_CASES)),
+                  ("sdxl_lightning_b1", LIGHTNING_B1_ATTENTION_CASES),
+                  ("sdxl_mscoco_b16", MSCOCO_B16_ATTENTION_CASES)),
     "attention_f32": (("sd15", ATTENTION_CASES),
                       ("sd21_v", SD2_F32_ATTENTION_CASES),
                       ("sdxl", SDXL_F32_ATTENTION_CASES)),
@@ -946,6 +1013,25 @@ def check_int8_score_stages(fa, site, q, k, stages) -> None:
     check(all(same), f"{site}: int8 q/k or scales differ from the plain ones")
 
 
+def check_batch_invariance(fa, randn) -> None:
+    """The batch-16 attention sites: the grid the kernel picks, and rows
+    0-1 and 14-15 of a batch-16 call bit for bit a batch-2 call on the
+    same rows (a block handles one (batch row, head, q tile), so a row's
+    output does not depend on the batch around it)."""
+    for site, (b, n, c), nkv, heads, _, _ in MSCOCO_B16_ATTENTION_CASES[:-1]:
+        blocks, warps = flash_blocks(b, n, heads)
+        q, k, v = (randn(*shape).bfloat16()
+                   for shape in ((b, n, c), (b, nkv, c), (b, nkv, c)))
+        out = fa.flash_attention_hd(q, k, v, heads)
+        same = [torch.equal(out[r:r + 2], fa.flash_attention_hd(
+            q[r:r + 2], k[r:r + 2], v[r:r + 2], heads)) for r in (0, b - 2)]
+        print(f"  flash_attention_hd {site}: grid of {blocks} blocks of"
+              f" {warps} warp(s) ({-(-n // (4 * 32 if warps == 4 else 32))}"
+              f" x {heads} x {b}); rows 0-1 and {b - 2}-{b - 1} bit for bit"
+              f" the batch-2 call's: {same}", flush=True)
+        check(all(same), f"{site}: a row's attention depends on the batch")
+
+
 def model_cases(kind: str):
     """(model, *case) of every phase-2 case of ``kind``, in table order."""
     return [(model, *case) for model, cases in CASES[kind] for case in cases]
@@ -984,6 +1070,8 @@ def phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
               f" {warps} warp(s) (csrc/flash_attention.cu launch_rows: four"
               f" warps where that gives every one of {H100_SMS} SMs a block)",
               flush=True)
+    check_batch_invariance(fa, randn)
+    torch.cuda.empty_cache()     # the batch-16 plain versions' f32 scores
 
     for model, cases in CASES["packed"]:
         for site, shape, heads, calls in cases:
@@ -2099,6 +2187,253 @@ def phase_lightning(fa, tk, tc, card: str):
     return launches, drift, seconds
 
 
+def phase_mscoco(fa, tk, tc, card: str) -> dict:
+    """MS-COCO eval generation through the CLIs on one sdxl bundle (random
+    weights from seed 0, bf16), every count set to 0 just before each run:
+    the README's command through ``text_to_mscoco.main`` on 10 prompts at
+    ``--batch_size 8`` (two batches, the second padded); its ``--resume``
+    after one image is deleted; index 9 drawn alone by ``sample_batch``
+    against the batch-8 image; two ranks (``RANK``/``WORLD_SIZE`` 0/2, then
+    1/2) each writing its one image; ``text_to_img.main`` with
+    ``--callbacks draw_tweedie draw_noisy --callback_frequency 10``, then
+    the same request with and without callbacks, fused and unrolled, and a
+    callback that halves zt at step 0 in both modes.  The CLIs' engines
+    share the first one's bundle.  Returns the launches of each run."""
+    import os
+    import tempfile
+
+    from cfgpp_tpu_torch.cli import common, text_to_img, text_to_mscoco
+    from cfgpp_tpu_torch.engine import ComposeCallback, DiffusionEngine
+    from cfgpp_tpu_torch.utils.img import (load_image, normalize, read_png,
+                                           to_uint8)
+
+    started = time.perf_counter()
+    reads = counters(fa, tk, tc)
+    res, made, starts = SDXL_RESOLUTION, {}, []
+
+    def build_engine(args):
+        """``cli.common.build_engine``, its bundle made once."""
+        dev = torch.device(args.device)
+        key = (args.model, args.dtype, torch.device(dev.type, dev.index or 0),
+               args.ckpt_dir, args.light_ckpt, args.quant)
+        check(key == ("sdxl", "bfloat16", torch.device("cuda", 0), None, None,
+                      None), f"phase 11: bundle arguments {key}")
+        if "bundle" not in made:
+            engine, made["seconds"] = timed(lambda: common.build_engine(args))
+            made["bundle"] = engine.bundle
+            return engine
+        return DiffusionEngine(made["bundle"], args.method, nfe=args.NFE)
+
+    sample_batch = DiffusionEngine.sample_batch
+
+    def timed_batch(self, *a, **kw):
+        starts.append(time.perf_counter())
+        return sample_batch(self, *a, **kw)
+
+    def launches():
+        return {name: read() for name, read in reads.items()}
+
+    def expect(n_hd: int) -> dict:
+        return {name: n_hd if name == "flash_attention_hd" else 0
+                for name in reads}
+
+    def mscoco(workdir: Path, *extra: str, env=None):
+        """One ``text_to_mscoco.main`` run; returns (launches, seconds of
+        each batch: from its sample_batch call to the next one's, the last
+        to the end of main, which waits for the writer)."""
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        starts.clear()
+        with mock.patch.dict(os.environ, env or {}):
+            text_to_mscoco.main([
+                "--model", "sdxl", "--method", MSCOCO_SOLVER,
+                "--cfg_guidance", str(MSCOCO_GUIDANCE), "--NFE",
+                str(MSCOCO_NFE), "--batch_size", str(MSCOCO_BATCH),
+                "--device", "cuda", "--prompt_dir", str(prompt_file),
+                "--workdir", str(workdir), *extra])
+        end = time.perf_counter()
+        return launches(), [b - a for a, b in zip(starts, starts[1:] + [end])]
+
+    def png(path: Path) -> np.ndarray:
+        return read_png(path.read_bytes())
+
+    def level_diff(a: np.ndarray, b: np.ndarray):
+        a, b = torch.from_numpy(a).float(), torch.from_numpy(b).float()
+        return rel_l2(a, b), int((a - b).abs().max().item())
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(text_to_mscoco, "build_engine", build_engine), \
+            mock.patch.object(text_to_img, "build_engine", build_engine), \
+            mock.patch.object(DiffusionEngine, "sample_batch", timed_batch):
+        tmp = Path(tmp)
+        prompt_file = tmp / "prompts.txt"
+        prompt_file.write_text("\n".join(MSCOCO_PROMPTS) + "\n")
+        n_prompts = len(MSCOCO_PROMPTS)
+        n_batches = -(-n_prompts // MSCOCO_BATCH)
+
+        # 1. the README's command: two batches, the second padded
+        coco = tmp / "coco"
+        runs["sdxl mscoco b8"], batch_s = mscoco(coco)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats = json.loads((coco / "generation_stats.json").read_text())
+        print(f"  sdxl bundle built by the CLI in {made['seconds']:.2f} s;"
+              f" text_to_mscoco {MSCOCO_SOLVER} lambda={MSCOCO_GUIDANCE}"
+              f" {MSCOCO_NFE} NFE --batch_size {MSCOCO_BATCH}: {n_prompts}"
+              f" prompts, {stats['images_per_sec']:.4f} img/s over"
+              f" {stats['seconds']:.2f} s, batches"
+              f" {[round(x, 3) for x in batch_s]} s, launches"
+              f" {runs['sdxl mscoco b8']}, peak device memory {peak:.2f} GiB"
+              f" at UNet batch {2 * MSCOCO_BATCH} [{card}]", flush=True)
+        for i in range(n_prompts):
+            img = load_image(coco / f"{i:05d}.png", size=res, centered=False)
+            check(img.shape == (1, res, res, 3),
+                  f"{i:05d}.png: {img.shape}, expected a {res}^2 RGB image")
+        padded = [i for i in range(n_prompts, n_batches * MSCOCO_BATCH)
+                  if (coco / f"{i:05d}.png").exists()]
+        check(not padded, f"files written for padded slots {padded}")
+        check(stats["num_images"] == n_prompts,
+              f"generation_stats.json num_images {stats['num_images']}")
+        check(runs["sdxl mscoco b8"] == expect(
+            n_batches * MSCOCO_LAUNCHES_PER_BATCH),
+            f"mscoco launches {runs['sdxl mscoco b8']}, expected"
+            f" {n_batches * MSCOCO_LAUNCHES_PER_BATCH}")
+
+        # 2. --resume: the first batch skipped, the second regenerated
+        first = {i: (coco / f"{i:05d}.png").stat().st_mtime_ns
+                 for i in range(MSCOCO_BATCH)}
+        (coco / f"{n_prompts - 1:05d}.png").unlink()
+        runs["sdxl mscoco resume"], resume_s = mscoco(coco, "--resume")
+        stats = json.loads((coco / "generation_stats.json").read_text())
+        moved = [i for i, t in first.items()
+                 if (coco / f"{i:05d}.png").stat().st_mtime_ns != t]
+        print(f"  --resume after deleting {n_prompts - 1:05d}.png: batches"
+              f" {[round(x, 3) for x in resume_s]} s, launches"
+              f" {runs['sdxl mscoco resume']}, num_images"
+              f" {stats['num_images']}, first batch rewritten: {moved}"
+              f" [{card}]", flush=True)
+        check(not moved, f"--resume rewrote the first batch's files {moved}")
+        check((coco / f"{n_prompts - 1:05d}.png").is_file(),
+              "--resume did not regenerate the deleted image")
+        check(stats["num_images"] == n_prompts - MSCOCO_BATCH,
+              f"--resume num_images {stats['num_images']}")
+        check(runs["sdxl mscoco resume"] == expect(MSCOCO_LAUNCHES_PER_BATCH),
+              f"--resume launches {runs['sdxl mscoco resume']}")
+
+        # 3. batch invariance: the last index drawn alone
+        engine = DiffusionEngine(made["bundle"], MSCOCO_SOLVER, nfe=MSCOCO_NFE)
+        last = n_prompts - 1
+        solo = engine.sample_batch(
+            common.DEFAULT_NULL_PROMPT, [MSCOCO_PROMPTS[last]],
+            cfg_guidance=MSCOCO_GUIDANCE, seed=SEED, resolution=res,
+            sample_indices=[last], to_uint8=True)[0]
+        rel, levels = level_diff(solo, png(coco / f"{last:05d}.png"))
+        print(f"  index {last} alone (UNet batch 2) against the batch-8 image:"
+              f" rel_l2 {rel:.3e} (tol {INVARIANCE_REL_L2_TOL}), largest"
+              f" difference {levels} uint8 levels", flush=True)
+        check(rel <= INVARIANCE_REL_L2_TOL, "batch invariance: index"
+              f" {last} alone differs from the batch-8 image by {rel}")
+
+        # 4. two ranks on the one card, one after the other
+        ranks = tmp / "ranks"
+        for r in (0, 1):
+            label = f"sdxl mscoco rank{r}"
+            runs[label], _ = mscoco(
+                ranks, "--num_prompts", "2", "--batch_size", "2",
+                env={"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0"})
+            stats = json.loads(
+                (ranks / f"generation_stats.rank{r}.json").read_text())
+            written = sorted(p.name for p in ranks.glob("0*.png"))
+            rel, levels = level_diff(png(ranks / f"{r:05d}.png"),
+                                     png(coco / f"{r:05d}.png"))
+            print(f"  rank {r} of 2: files {written}, num_images"
+                  f" {stats['num_images']}, launches {runs[label]}; image {r}"
+                  f" against the batch-8 run's: rel_l2 {rel:.3e}, largest"
+                  f" difference {levels} uint8 levels", flush=True)
+            check(written == [f"{i:05d}.png" for i in range(r + 1)]
+                  and stats["num_images"] == 1,
+                  f"rank {r}: files {written}, stats {stats}")
+            check(runs[label] == expect(MSCOCO_NFE * SDXL_SITES_PER_CALL + 1),
+                  f"rank {r}: launches {runs[label]}")
+            check(rel <= INVARIANCE_REL_L2_TOL, f"rank {r}: image {r} differs"
+                  f" from the batch-8 run's by {rel}")
+
+        # 5. callbacks, fused and unrolled
+        t2i = tmp / "t2i"
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        text_to_img.main([
+            "--model", "sdxl", "--method", MSCOCO_SOLVER, "--cfg_guidance",
+            str(MSCOCO_GUIDANCE), "--NFE", str(MSCOCO_NFE), "--callbacks",
+            "draw_tweedie", "draw_noisy", "--callback_frequency",
+            str(CALLBACK_FREQUENCY), "--device", "cuda", "--prompt",
+            PROMPTS[0], "--workdir", str(t2i)])
+        runs["sdxl callbacks"] = launches()
+        ts = engine.plan.coeffs["t"]
+        records = {sub: sorted(p.name for p in (t2i / "record" / sub).iterdir())
+                   for sub in ("tweedie", "noisy")}
+        print(f"  text_to_img --callbacks draw_tweedie draw_noisy"
+              f" --callback_frequency {CALLBACK_FREQUENCY}:"
+              f" {time.perf_counter() - t0:.2f} s, launches"
+              f" {runs['sdxl callbacks']}, record/ {records} [{card}]",
+              flush=True)
+        for sub, prefix in (("tweedie", "x0"), ("noisy", "xt")):
+            want = sorted(f"{prefix}_{int(ts[i])}.png" for i in CALLBACK_STEPS)
+            check(records[sub] == want, f"record/{sub}: {records[sub]},"
+                  f" expected {want}")
+        check(runs["sdxl callbacks"] == expect(CALLBACK_LAUNCHES),
+              f"callback request launches {runs['sdxl callbacks']}, expected"
+              f" {CALLBACK_LAUNCHES}")
+
+        def request(**kw):
+            return engine.sample([common.DEFAULT_NULL_PROMPT, PROMPTS[0]],
+                                 cfg_guidance=MSCOCO_GUIDANCE, seed=SEED,
+                                 resolution=res, **kw)
+
+        def halve_zt(step, t, kw):
+            return dict(kw, zt=kw["zt"] * 0.5) if step == 0 else kw
+
+        def diff(a, b) -> float:
+            return (a - b).abs().max().item()
+
+        callback = ComposeCallback(tmp / "engine", ["draw_tweedie",
+                                                    "draw_noisy"],
+                                   frequency=CALLBACK_FREQUENCY)
+        plain = request()
+        spread = diff(request(), plain)
+        fused = request(callback_fn=callback)
+        unrolled = request(callback_fn=callback, unrolled=True)
+        halved = request(callback_fn=halve_zt, unrolled=True)
+        replayed = request(callback_fn=halve_zt)
+        cli_png = png(t2i / "result" / "generated.png")
+        want_png = to_uint8(normalize(plain[0].cpu().numpy()))
+        cli_levels = int(np.abs(cli_png.astype(int) - want_png).max())
+        print(f"  one request twice: max difference {spread:.3e}; with"
+              f" callbacks (fused) against without {diff(fused, plain):.3e},"
+              f" unrolled against fused {diff(unrolled, fused):.3e}; zt"
+              f" halved at step 0: unrolled {diff(halved, plain):.3e},"
+              f" fused (replayed, ignored) {diff(replayed, plain):.3e}; the"
+              f" CLI's PNG against the request without callbacks"
+              f" {cli_levels} uint8 levels", flush=True)
+        check(diff(fused, plain) <= spread, "the fused callbacks changed"
+              " the image")
+        check(diff(unrolled, fused) <= spread, "unrolled differs from fused")
+        check(diff(halved, plain) > spread, "halving zt under unrolled=True"
+              " did not change the image")
+        check(diff(replayed, plain) <= spread, "a replayed callback's"
+              " mutation changed the image")
+        check(cli_levels <= (0 if spread == 0 else 1), "text_to_img with"
+              f" callbacks differs from the request without by {cli_levels}"
+              " levels")
+    del engine, made["bundle"]
+    torch.cuda.empty_cache()
+    print(f"  phase 11 wall time {time.perf_counter() - started:.1f} s"
+          f" [{card}]", flush=True)
+    return runs
+
+
 # name: (source, the TPU kernel it replaces, the path whose run counts its
 # launches).
 KERNEL_SOURCES = {
@@ -2253,6 +2588,15 @@ def main() -> None:
           f" request each of {', '.join(LIGHTNING_SOLVERS)} in"
           f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    launches.update(phase_mscoco(fa, tk, tc, card))
+    print(f"phase 11 ok: text_to_mscoco on sdxl at {SDXL_RESOLUTION}^2,"
+          f" {MSCOCO_SOLVER} lambda={MSCOCO_GUIDANCE} {MSCOCO_NFE} NFE"
+          f" --batch_size {MSCOCO_BATCH} ({len(MSCOCO_PROMPTS)} prompts),"
+          " --resume, batch invariance, two ranks, text_to_img --callbacks"
+          f" and the unrolled mode in {time.perf_counter() - t0:.1f} s"
+          f" [{card}]", flush=True)
+
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
         summary = table.summary(name, {LIGHTNING_MODEL: (
@@ -2273,7 +2617,10 @@ def main() -> None:
                       " at the ddim_cfg++_lightning request's calls, its"
                       " --quant dense request's for the int8 and packed"
                       " kernels; sdxl_lightning_b1: the batch-1 rows of a"
-                      " ddim_lightning request, its decode not counted)",
+                      " ddim_lightning request, its decode not counted;"
+                      " sdxl_mscoco_b16: one batch of 8 images of the"
+                      " MS-COCO command, 50 UNet calls of batch 16 and 8"
+                      " decodes)",
             "by_model": summary["by_model"],
             "launches_by_path": {path: n[name] for path, n in launches.items()
                                  if name in n},

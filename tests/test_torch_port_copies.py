@@ -151,6 +151,10 @@ def test_port_imports_nothing_of_jax():
         "assert len(names) > 25, names\n"
         "for new in ('cfgpp_tpu_torch.schedules.karras',\n"
         "            'cfgpp_tpu_torch.cli.inversion',\n"
+        "            'cfgpp_tpu_torch.cli.text_to_mscoco',\n"
+        "            'cfgpp_tpu_torch.engine.callbacks',\n"
+        "            'cfgpp_tpu_torch.parallel',\n"
+        "            'cfgpp_tpu_torch.utils.log',\n"
         "            'cfgpp_tpu_torch.engine.pipeline',\n"
         "            'cfgpp_tpu_torch.solvers.registry',\n"
         "            'cfgpp_tpu_torch.tools.profile_requests'):\n"
