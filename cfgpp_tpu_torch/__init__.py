@@ -3,7 +3,8 @@
 Module paths mirror ``cfgpp_tpu/``, whose JAX code is the reference each
 module is tested against.  The port imports torch and never jax, and
 nothing of the JAX package: ``configs``, ``schedules.ddim``,
-``schedules.karras`` and ``weights.tokenizer`` are copies, held equal to the JAX package's by
+``schedules.karras``, ``weights.tokenizer``, ``metrics.fid`` and
+``metrics.functional`` are copies, held equal to the JAX package's by
 ``tests/test_torch_port_copies.py``.
 
 Layer map (bottom-up):
@@ -12,7 +13,7 @@ Layer map (bottom-up):
   kernels/    their wrappers (kernel on a CUDA tensor, plain PyTorch on a
               CPU tensor), the nvcc build and the ctypes loader
   models/     CLIP text encoder, UNet2DCondition (SD-1.5, SD-2.x and SDXL
-              layouts), VAE
+              layouts), VAE, the CLIP image tower
   weights/    safetensors I/O; HF-layout and SGM single-file checkpoints
               and the native one -> the port's modules; JAX parameter
               trees -> the port's state dicts; the CLIP tokenizer (copy)
@@ -22,10 +23,15 @@ Layer map (bottom-up):
   engine/     ModelBundle + DiffusionEngine (tokenize -> encode -> solve ->
               decode; sample and the batched sample_batch) + callbacks
   parallel/   one process per GPU: the rank's share of a global batch
-  utils/      PNG output (also on writer threads) and input; logging and
-              workdirs; roofline bounds of the kernels' work
-  tools/      A/B timing and profiling scripts; the SGM inverse map
-  cli/        text_to_img, inversion, text_to_mscoco, convert_checkpoint
+  metrics/    FID InceptionV3, VGG LPIPS, CLIP-score, the FID statistics
+              and PSNR/MSE (copies)
+  utils/      PNG output (also on writer threads) and PNG/JPEG input (a
+              decoder pool), PIL's resampling; logging and workdirs;
+              roofline bounds of the kernels' work
+  tools/      A/B timing and profiling scripts; the SGM inverse map; random
+              metric weights in the published layouts
+  cli/        text_to_img, inversion, text_to_mscoco, convert_checkpoint,
+              calculate_metrics
 """
 
 __version__ = "0.1.0"

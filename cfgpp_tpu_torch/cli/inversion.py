@@ -3,7 +3,7 @@
 
 Run: ``python -m cfgpp_tpu_torch.cli.inversion --img_path in.png --prompt
 "..." --method ddim_inversion_cfg++ --cfg_guidance 0.6 --NFE 10``.  Loads a
-PNG, inverts it to zT with the chosen inversion solver, resamples, and
+PNG or JPEG, inverts it to zT with the chosen inversion solver, resamples, and
 writes ``<workdir>/result/reconstruct.png``.
 """
 
@@ -20,7 +20,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="cfgpp_tpu_torch inversion")
     add_common_args(parser, default_method="ddim_inversion_cfg++", default_nfe=10)
     parser.add_argument("--img_path", type=str, required=True,
-                        help="8-bit greyscale, RGB or RGBA PNG")
+                        help="8-bit greyscale, RGB or RGBA PNG, or a JPEG")
     parser.add_argument("--img_size", type=int, default=512)
     parser.add_argument("--latent_init", type=str, default="ddim",
                         choices=("ddim", "npi"),

@@ -1,30 +1,42 @@
 """Image IO helpers (host side), counterpart of the parts of
 ``cfgpp_tpu/utils/img.py`` that the engine and the CLIs need, and of
-``cfgpp_tpu/native``'s `AsyncPngWriter`.
+``cfgpp_tpu/native``'s `AsyncPngWriter` and `AsyncPngReader`.
 
-PNGs are written and read with the standard library's zlib, so saving and
-loading an image needs no imaging package.  `load_image` reads 8-bit,
-non-interlaced greyscale, RGB and RGBA PNGs; any other format raises.
-`AsyncPngWriter` encodes and writes on worker threads: ``zlib.compress``
-and the file write release the GIL, so the threads overlap each other and
-the caller without a native library.
+PNGs are written and read with the standard library's zlib, and JPEGs read
+by `cfgpp_tpu_torch.utils.jpeg`, so saving and loading an image needs no
+imaging package.  `read_image` reads 8-bit, non-interlaced greyscale, RGB
+and RGBA PNGs and the JPEGs PIL reads with its defaults (baseline and
+progressive, greyscale or YCbCr), each to the bit what PIL's
+``convert("RGB")`` gives; any other format raises.  `resize` is PIL's
+8-bit bicubic and bilinear resample.  `AsyncPngWriter` encodes and writes
+on worker threads: ``zlib.compress`` and the file write release the GIL, so
+the threads overlap each other and the caller without a native library.
+`AsyncImageReader` decodes ahead of its consumer: PNGs on threads (zlib
+releases the GIL), JPEGs in worker processes (the entropy decoder is a
+Python loop that holds it).
 """
 
 from __future__ import annotations
 
+import multiprocessing
+import os
 import struct
 import zlib
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import (Future, ProcessPoolExecutor,
+                                ThreadPoolExecutor)
 from pathlib import Path
-from typing import List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from cfgpp_tpu_torch.utils.jpeg import decode_jpeg, jpeg_size
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel: greyscale, RGB, greyscale+alpha, RGBA
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-# leading bytes of the formats load_image refuses, to name them
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+_JPEG_SOI = b"\xff\xd8\xff"
+# leading bytes of the formats read_image refuses, to name them
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"),
                   (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
                   (b"RIFF", "a RIFF container (WebP)"))
 
@@ -153,38 +165,46 @@ class AsyncPngWriter:
 
 def _unfilter_rows(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the PNG row filters (None, Sub, Up, Average, Paeth):
-    [h, stride] uint8 from the inflated IDAT stream."""
+    [h, stride] uint8 from the inflated IDAT stream.  Runs of None, Sub and
+    Up rows are undone a run at a time in numpy (uint8 sums wrap as the
+    filters' modulo-256 sums do); Average and Paeth rows one byte at a
+    time."""
     if len(raw) != h * (stride + 1):
         raise ValueError(f"PNG: {len(raw)} bytes of pixel data, expected"
                          f" {h * (stride + 1)}")
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    kinds = rows[:, 0]
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown row filter type {int(kinds.max())}")
     out = np.zeros((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, line = int(rows[y, 0]), rows[y, 1:]
+    cuts = (np.flatnonzero(kinds[1:] != kinds[:-1]) + 1).tolist()
+    for a, b in zip([0] + cuts, cuts + [h]):
+        kind, lines = int(kinds[a]), rows[a:b, 1:]
         if kind == 0:
-            cur = line.copy()
+            out[a:b] = lines
         elif kind == 1:      # Sub: + the byte one pixel to the left
-            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint32)
-                   % 256).astype(np.uint8).reshape(-1)
+            out[a:b] = np.cumsum(lines.reshape(b - a, -1, bpp), axis=1,
+                                 dtype=np.uint8).reshape(b - a, stride)
         elif kind == 2:      # Up: + the byte above
-            cur = line + prior
-        elif kind in (3, 4):  # Average, Paeth: sequential along the row
-            cur, up = bytearray(line.tobytes()), prior.tobytes()
-            for x in range(stride):
-                a = cur[x - bpp] if x >= bpp else 0
-                b = up[x]
-                if kind == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[x - bpp] if x >= bpp else 0
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[x] = (cur[x] + pred) & 255
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG: unknown row filter type {kind}")
-        out[y] = prior = cur
+            out[a:b] = np.cumsum(lines, axis=0, dtype=np.uint8) + prior
+        else:                # Average, Paeth: sequential along the row
+            for y in range(a, b):
+                cur, up = bytearray(rows[y, 1:].tobytes()), prior.tobytes()
+                for x in range(stride):
+                    left = cur[x - bpp] if x >= bpp else 0
+                    above = up[x]
+                    if kind == 3:
+                        pred = (left + above) >> 1
+                    else:
+                        c = up[x - bpp] if x >= bpp else 0
+                        pa, pb = abs(above - c), abs(left - c)
+                        pc = abs(left + above - 2 * c)
+                        pred = left if pa <= pb and pa <= pc else (
+                            above if pb <= pc else c)
+                    cur[x] = (cur[x] + pred) & 255
+                out[y] = prior = np.frombuffer(bytes(cur), np.uint8)
+        prior = out[b - 1]
     return out
 
 
@@ -193,9 +213,7 @@ def read_png(data: bytes) -> np.ndarray:
     grey repeated over the three channels, alpha dropped (PIL's
     ``convert("RGB")``)."""
     if not data.startswith(_PNG_SIGNATURE):
-        fmt = next((name for magic, name in _OTHER_FORMATS
-                    if data.startswith(magic)), "an unknown format")
-        raise ValueError(f"load_image reads PNG files only; this file is {fmt}")
+        raise _unknown_format(data)
     pos, header, idat = len(_PNG_SIGNATURE), None, []
     while pos + 8 <= len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
@@ -220,67 +238,223 @@ def read_png(data: bytes) -> np.ndarray:
     return np.repeat(px[..., :1], 3, axis=-1) if ch < 3 else px[..., :3].copy()
 
 
+def _unknown_format(data: bytes) -> ValueError:
+    fmt = next((name for magic, name in _OTHER_FORMATS
+                if data.startswith(magic)), "an unknown format")
+    return ValueError(f"load_image reads PNG and JPEG files only; this file"
+                      f" is {fmt}")
+
+
+def read_image(path) -> np.ndarray:
+    """A PNG or JPEG file -> [H, W, 3] uint8, PIL's ``convert("RGB")`` of
+    it."""
+    data = Path(path).read_bytes()
+    if data.startswith(_JPEG_SOI):
+        return decode_jpeg(data)
+    return read_png(data)
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) of a PNG or JPEG from its header (IHDR, SOFn),
+    without decoding the pixels."""
+    with open(path, "rb") as f:
+        head = f.read(1 << 16)
+        if head.startswith(_PNG_SIGNATURE):
+            return struct.unpack(">II", head[16:24])
+        if not head.startswith(_JPEG_SOI):
+            raise _unknown_format(head)
+        try:
+            return jpeg_size(head)
+        except ValueError:          # a header past the first 64 KiB
+            return jpeg_size(head + f.read())
+
+
 _RESAMPLE_BITS = 22       # fraction bits of PIL's 8-bit resample weights
 
 
-def _bicubic_taps(n_in: int, n_out: int):
-    """PIL's bicubic resample along one axis (Pillow's Resample.c: the
-    a = -0.5 cubic, stretched by the downscale factor so that it also
-    antialiases, weights normalized and rounded to fixed point): per output
-    index the first input index [n_out] and the integer weights
-    [n_out, taps]."""
+def _bicubic(x: float) -> float:
+    """Pillow's bicubic_filter (a = -0.5)."""
+    x = abs(x)
+    if x < 1.0:
+        return (1.5 * x - 2.5) * x * x + 1.0
+    if x < 2.0:
+        return (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5
+    return 0.0
+
+
+def _bilinear(x: float) -> float:
+    """Pillow's bilinear_filter: the triangle of support 1."""
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+
+
+def _resample_taps(n_in: int, n_out: int, resample: str):
+    """Pillow's precompute_coeffs and normalize_coeffs_8bpc (Resample.c)
+    for one axis: the filter stretched by the downscale factor so that it
+    also antialiases, the weights normalized in double precision and
+    rounded to 22 fraction bits.  Per output index the first input index
+    [n_out] and the integer weights [n_out, taps]."""
+    kernel, filter_support = _FILTERS[resample]
     scale = n_in / n_out
-    stretch = max(scale, 1.0)
-    support = 2.0 * stretch
+    filterscale = max(scale, 1.0)
+    support = filter_support * filterscale
     taps = int(np.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
     first = np.zeros(n_out, np.int64)
     weights = np.zeros((n_out, taps), np.int64)
     for i in range(n_out):
         center = (i + 0.5) * scale
         lo = max(int(center - support + 0.5), 0)
         hi = min(int(center + support + 0.5), n_in)
-        x = np.abs((np.arange(lo, hi) - center + 0.5) / stretch)
-        k = np.where(x < 1.0, (1.5 * x - 2.5) * x * x + 1.0,
-                     np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5,
-                              0.0))
-        if k.sum() != 0.0:
-            k = k / k.sum()
+        k = [kernel((x + lo - center + 0.5) * ss) for x in range(hi - lo)]
+        total = 0.0
+        for w in k:
+            total += w
+        if total != 0.0:
+            k = [w / total for w in k]
         first[i] = lo
-        weights[i, :hi - lo] = np.trunc(k * 2 ** _RESAMPLE_BITS
-                                        + np.where(k < 0, -0.5, 0.5))
+        weights[i, :hi - lo] = [
+            int(w * (1 << _RESAMPLE_BITS) + (-0.5 if w < 0 else 0.5))
+            for w in k]
     return first, weights
 
 
-def _resample_axis(px: np.ndarray, n_out: int, axis: int) -> np.ndarray:
-    """One pass of PIL's 8-bit resample along ``axis`` of a uint8 image."""
+def _resample_axis(px: np.ndarray, n_out: int, axis: int,
+                   resample: str) -> np.ndarray:
+    """One pass of PIL's 8-bit resample along ``axis`` of a uint8 image,
+    with Pillow's 32-bit integer sums (ImagingResampleHorizontal_8bpc)."""
     n_in = px.shape[axis]
-    first, weights = _bicubic_taps(n_in, n_out)
-    src = np.moveaxis(px, axis, 0).astype(np.int64)
-    acc = np.full((n_out,) + src.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int64)
+    first, weights = _resample_taps(n_in, n_out, resample)
+    weights = weights.astype(np.int32)
+    src = np.moveaxis(px, axis, 0)
+    acc = np.full((n_out,) + src.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int32)
+    term = np.empty_like(acc)
     wshape = (n_out,) + (1,) * (src.ndim - 1)
     for j in range(weights.shape[1]):
         idx = np.minimum(first + j, n_in - 1)   # weights past the edge are 0
-        acc += src[idx] * weights[:, j].reshape(wshape)
+        np.multiply(src[idx], weights[:, j].reshape(wshape), out=term)
+        acc += term
     out = np.clip(acc >> _RESAMPLE_BITS, 0, 255).astype(np.uint8)
     return np.moveaxis(out, 0, axis)
 
 
-def resize_bicubic(rgb: np.ndarray, size: int) -> np.ndarray:
-    """[H, W, 3] uint8 -> [size, size, 3] uint8 as PIL's default
-    ``Image.resize((size, size))`` gives it: bicubic with antialiasing,
-    the horizontal pass first, each pass rounded to uint8."""
-    if rgb.shape[1] != size:
-        rgb = _resample_axis(rgb, size, axis=1)
-    if rgb.shape[0] != size:
-        rgb = _resample_axis(rgb, size, axis=0)
+def resize(rgb: np.ndarray, size: Tuple[int, int],
+           resample: str = "bicubic") -> np.ndarray:
+    """[H, W, C] uint8 -> [h, w, C] uint8 for ``size = (w, h)``, as PIL's
+    ``Image.resize(size, BICUBIC or BILINEAR)`` gives it: the horizontal
+    pass first, each pass rounded to uint8, an axis of unchanged length
+    left alone."""
+    w, h = size
+    if rgb.shape[1] != w:
+        rgb = _resample_axis(rgb, w, axis=1, resample=resample)
+    if rgb.shape[0] != h:
+        rgb = _resample_axis(rgb, h, axis=0, resample=resample)
     return rgb
 
 
 def load_image(path, size: int = 512, centered: bool = True) -> np.ndarray:
-    """A PNG -> [1, size, size, 3] float32, in [-1, 1] with ``centered``
-    (examples/inversion.py:16-22 semantics, NHWC), resized as PIL's
-    ``resize`` does by default (`resize_bicubic`)."""
-    arr = resize_bicubic(read_png(Path(path).read_bytes()), size).astype(np.float32)
+    """A PNG or JPEG -> [1, size, size, 3] float32, in [-1, 1] with
+    ``centered`` (examples/inversion.py:16-22 semantics, NHWC), resized as
+    PIL's ``resize((size, size))`` does by default (bicubic)."""
+    arr = resize(read_image(path), (size, size)).astype(np.float32)
     if centered:
         arr = arr / 127.5 - 1.0
     return arr[None]
+
+
+def _is_jpeg_name(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
+def _read(path: str, transform: Optional[Callable]):
+    px = read_image(path)
+    return px if transform is None else transform(px)
+
+
+class AsyncImageReader:
+    """Decodes image files ahead of their consumer, counterpart of
+    ``cfgpp_tpu/native``'s `AsyncPngReader`: `get(i)` returns the i-th
+    path's `read_image`, passed through ``transform`` if one is given
+    (blocking until its decode has ended), iteration returns them in order,
+    and at most ``window`` decodes run ahead of the highest index read so
+    far.  ``transform`` (a resize, a crop) runs in the worker beside the
+    decode; for JPEGs it must pickle (a module-level function or a
+    ``functools.partial`` of one).  ``.png`` and other files decode on
+    ``n_threads`` threads; ``.jpg``/``.jpeg`` files in worker processes
+    (one a core up to 8, never more than there are JPEGs), started at the
+    first JPEG.  The processes come from a
+    ``forkserver`` context: the server is a fresh interpreter that has
+    imported this module, and each pool forks its workers from it, so the
+    caller may have initialized CUDA and a second pool starts at once.  A
+    decode's error is raised by the `get` that reads it.  `close`, or
+    leaving the ``with`` block, stops the workers."""
+
+    def __init__(self, paths, n_threads: int = 8, window: int = 64,
+                 transform: Optional[Callable] = None):
+        self._paths = [str(p) for p in paths]
+        self._transform = transform
+        self._n_threads = n_threads
+        n_jpeg = sum(map(_is_jpeg_name, self._paths))
+        self._n_processes = min(8, os.cpu_count() or 1, max(n_jpeg, 1))
+        self._window = max(window, n_threads)
+        self._threads: Optional[ThreadPoolExecutor] = None
+        self._processes: Optional[ProcessPoolExecutor] = None
+        self._pending: Dict[int, Future] = {}
+        self._submitted = 0
+        self._fill(0)
+
+    def _pool(self, path: str):
+        if _is_jpeg_name(path):
+            if self._processes is None:
+                ctx = multiprocessing.get_context("forkserver")
+                ctx.set_forkserver_preload([__name__])
+                self._processes = ProcessPoolExecutor(self._n_processes,
+                                                      mp_context=ctx)
+            return self._processes
+        if self._threads is None:
+            self._threads = ThreadPoolExecutor(self._n_threads,
+                                               thread_name_prefix="imread")
+        return self._threads
+
+    def _fill(self, consumed: int) -> None:
+        hi = min(consumed + self._window, len(self._paths))
+        while self._submitted < hi:
+            path = self._paths[self._submitted]
+            self._pending[self._submitted] = self._pool(path).submit(
+                _read, path, self._transform)
+            self._submitted += 1
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def get(self, i: int) -> np.ndarray:
+        """[H, W, 3] uint8 of the i-th path (or its transform).  A result is
+        handed out once; a second `get` of the same index decodes the file
+        again."""
+        self._fill(i + 1)
+        future = self._pending.pop(i, None)
+        if future is None:
+            return _read(self._paths[i], self._transform)
+        return future.result()
+
+    def __iter__(self):
+        for i in range(len(self._paths)):
+            yield self.get(i)
+
+    def close(self) -> None:
+        for future in self._pending.values():
+            future.cancel()
+        self._pending.clear()
+        for pool in (self._threads, self._processes):
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+        self._threads = self._processes = None
+
+    def __enter__(self) -> "AsyncImageReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

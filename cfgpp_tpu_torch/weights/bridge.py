@@ -22,6 +22,11 @@ per-output-channel weight scale, not a norm weight:
   bias [N]                   -> bias [N], f32
   attn1/to_qkv               -> attn1.to_qkv
 
+The metric towers' trees go to the port's metric modules:
+``cfgpp_tpu/metrics``' `convert_inception` and `convert_vgg16_lpips` trees
+through `tower_state_dict` (their module names are the port's), and
+`convert_clip_vision`'s through `clip_vision_state_dict`.
+
 Input trees hold array-likes (numpy or JAX arrays, read through
 ``np.asarray``); nothing here imports JAX.
 """
@@ -120,4 +125,43 @@ def clip_text_state_dict(params: Mapping) -> StateDict:
             where = ("text_model.encoder." if top.startswith("layers_")
                      else "text_model.")
             out[where + ".".join(mods + [kind])] = t
+    return out
+
+
+def clip_vision_state_dict(params: Mapping) -> StateDict:
+    """JAX CLIPVisionModel params -> transformers CLIPVisionModel
+    [WithProjection] state dict."""
+    tree = params.get("params", params)
+    out: StateDict = {}
+    emb = "vision_model.embeddings."
+    for path, value in _leaves(tree):
+        top = path[0]
+        if top == "class_embedding":
+            out[emb + "class_embedding"] = _tensor("bias", value)[1]
+        elif top == "position_embedding":
+            out[emb + "position_embedding.weight"] = _tensor(
+                "embedding", value)[1]
+        elif top == "patch_embedding":
+            out[emb + "patch_embedding.weight"] = _tensor("kernel", value)[1]
+        elif top == "visual_projection":
+            out["visual_projection.weight"] = _tensor("kernel", value)[1]
+        else:
+            kind, t = _tensor(path[-1], value)
+            mods = [_module_name(p) for p in path[:-1]]
+            where = ("vision_model.encoder." if top.startswith("layers_")
+                     else "vision_model.")
+            out[where + ".".join(mods + [kind])] = t
+    return out
+
+
+def tower_state_dict(params: Mapping) -> StateDict:
+    """JAX InceptionV3Features (BatchNorm folded) or LPIPS params -> the
+    port's `InceptionV3Features` / `LPIPS` state dict: the tree's names
+    dotted (``Mixed_5b.branch1x1.conv.weight``, ``vgg.conv_0.weight``,
+    ``lin_0.weight`` ...), kernels to torch layout."""
+    tree = params.get("params", params)
+    out: StateDict = {}
+    for path, value in _leaves(tree):
+        kind, t = _tensor(path[-1], value)
+        out[".".join(list(path[:-1]) + [kind])] = t
     return out

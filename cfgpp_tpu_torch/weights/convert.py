@@ -11,7 +11,8 @@ stands.  What is left are the JAX converter's own rules:
 * a CLIP file's ``position_ids``, and the vision tower and ``logit_scale``
   of a combined CLIPModel file, are skipped; any other key outside
   ``text_model.*`` / ``text_projection`` raises, and so does a file with no
-  ``text_model.*`` key (``convert.py:154-189``);
+  ``text_model.*`` key (``convert.py:154-189``); the image tower's loader
+  does the same the other way round (``convert.py:192-225``);
 * the structural check: missing, extra and shape-mismatched names raise
   (``convert.py:245-257``);
 * each tensor is cast to the dtype of the parameter it fills.
@@ -31,6 +32,7 @@ StateDict = Dict[str, torch.Tensor]
 _LEGACY_VAE = {"query": "to_q", "key": "to_k", "value": "to_v",
                "proj_attn": "to_out.0"}
 _CLIP_SKIPPED = ("vision_model.", "visual_projection")
+_CLIP_TEXT = ("text_model.", "text_projection")
 
 
 def vae_from_hf(state: Mapping[str, torch.Tensor]) -> StateDict:
@@ -53,6 +55,23 @@ def clip_text_from_hf(state: Mapping[str, torch.Tensor]) -> StateDict:
         out[key] = value
     if not any(k.startswith("text_model.") for k in out):
         raise KeyError("no text_model.* keys found in the CLIP state dict")
+    return out
+
+
+def clip_vision_from_hf(state: Mapping[str, torch.Tensor]) -> StateDict:
+    """The image half of a transformers CLIPVisionModelWithProjection or
+    CLIPModel state dict."""
+    out: StateDict = {}
+    for key, value in state.items():
+        if key.endswith("position_ids") or key == "logit_scale" \
+                or key.startswith(_CLIP_TEXT):
+            continue
+        if not key.startswith("vision_model.") \
+                and key != "visual_projection.weight":
+            raise KeyError(f"unhandled CLIP vision key: {key}")
+        out[key] = value
+    if not any(k.startswith("vision_model.") for k in out):
+        raise KeyError("no vision_model.* keys found in the CLIP state dict")
     return out
 
 

@@ -149,7 +149,29 @@ Phases, one status line each; any failure exits non-zero:
    unrolled (bit for bit, or within the spread of two runs of one
    request), and with a callback that halves zt at step 0 (it changes the
    image unrolled, not fused).
-12. summary: the run's wall time, a JSON line of the kernels
+12. metrics: ``python -m cfgpp_tpu_torch.cli.calculate_metrics``
+   (``main``) with every flag on phase 11's ten images and ``--device
+   cuda``: InceptionV3 FID, CLIP ViT-L/14 CLIP-FID and CLIP-score, VGG16
+   LPIPS at 1024^2, PSNR/MSE, full width, seeded random weights written in
+   the published layouts (``tools/metric_synth.py``: ``.pth`` and a
+   combined CLIPModel ``.safetensors``, about 1.9 GB) against paired labels
+   (the images plus seeded noise in [-8, 8]): every key finite, 10 pairs,
+   PSNR and MSE exactly numpy's, CLIP-score in (0, 100], LPIPS >= 0, no
+   kernel of the port launched (no TPU kernel lies on this path); LPIPS of
+   the images against themselves exactly 0; the committed JPEG fixtures
+   (``tests/data/jpeg/``) decoded bit for bit to their stored PIL decodes,
+   then FID and CLIP-FID against them (mixed sizes: the host-resize path);
+   the card's Inception, CLIP image and text features and two pairs' LPIPS
+   against the port on the CPU (rel-L2 1e-4, TF32 off), FIDs within 1e-3
+   relative, a self-FID within 1e-6 of the trace; the CLI's FID and
+   CLIP-FID within 1e-3 relative, its CLIP-score and LPIPS within 1e-4, of
+   the same metrics from the CPU's features (LPIPS: the card's per-pair
+   values), with every text-image cosine positive and the CLIP-score of a
+   pairing shifted by one image outside that bound; recorded: the FID with
+   cuDNN TF32 on, tower rates, decode and host-resize rates, the CLI's
+   wall time, peak device memory, and the projected time of a 10k-image
+   FID against COCO's JPEGs.
+13. summary: the run's wall time, a JSON line of the kernels
    (``launches_by_path`` with the sd21_v, sdxl, sdxl_lightning and MS-COCO
    runs; ``by_model``: each model's per-request sums, ``sdxl_lightning``
    from the sdxl rows at the Lightning calls, ``sdxl_mscoco_b16`` per
@@ -163,8 +185,10 @@ exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -654,6 +678,26 @@ CALLBACK_LAUNCHES = (MSCOCO_NFE * SDXL_SITES_PER_CALL + 1
 # another rank): cuDNN's convs and cuBLAS's GEMMs may pick other algorithms
 # at another batch, so a whole request is held by phase 3's UNet bound.
 INVARIANCE_REL_L2_TOL = MODEL_REL_L2_TOL
+# Phase 12: the metric CLI on phase 11's images, full-width towers with
+# seeded random weights in the published layouts.  Card against the port on
+# the CPU for the same files, TF32 off on both: f32 convs and GEMMs in
+# another order, so features within rel-L2 METRIC_REL_L2_TOL and FIDs
+# within METRIC_FID_REL_TOL relative; the FID of a set against itself
+# within SELF_FID_TRACE_SHARE x (tr S1 + tr S2) of 0 (numpy's FID of 10
+# random 2048-d features against themselves read 5.9e-8 of the trace).  The
+# CLI's own FIDs against those from the CPU's features of the same files
+# within METRIC_FID_REL_TOL, its CLIP-score and LPIPS within
+# METRIC_REL_L2_TOL relative.
+METRIC_REL_L2_TOL = 1e-4
+METRIC_FID_REL_TOL = 1e-3
+SELF_FID_TRACE_SHARE = 1e-6
+LABEL_NOISE = 8                  # paired labels: each image + U{-8..8}
+LPIPS_CPU_PAIRS = 2              # pairs whose LPIPS is also run on the CPU
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+# batch of each tower in the rate measurements (the functions' defaults)
+METRIC_BATCH = {"inception": 50, "clip_image": 64, "clip_text": 256,
+                "lpips": 8}
+TEN_K = 10_000                   # images of the projected MS-COCO FID
 # Phase 2's rows at UNet batch 16: sums per batch of 8 images (50 UNet
 # calls, 8 decodes).
 MSCOCO_B16_ATTENTION_CASES = sdxl_cases(
@@ -2187,7 +2231,7 @@ def phase_lightning(fa, tk, tc, card: str):
     return launches, drift, seconds
 
 
-def phase_mscoco(fa, tk, tc, card: str) -> dict:
+def phase_mscoco(fa, tk, tc, card: str, tmp: Path) -> dict:
     """MS-COCO eval generation through the CLIs on one sdxl bundle (random
     weights from seed 0, bf16), every count set to 0 just before each run:
     the README's command through ``text_to_mscoco.main`` on 10 prompts at
@@ -2198,10 +2242,9 @@ def phase_mscoco(fa, tk, tc, card: str) -> dict:
     ``--callbacks draw_tweedie draw_noisy --callback_frequency 10``, then
     the same request with and without callbacks, fused and unrolled, and a
     callback that halves zt at step 0 in both modes.  The CLIs' engines
-    share the first one's bundle.  Returns the launches of each run."""
-    import os
-    import tempfile
-
+    share the first one's bundle.  Everything is written under ``tmp``;
+    ``tmp / "coco"`` keeps the README command's ten images for phase 12.
+    Returns the launches of each run."""
     from cfgpp_tpu_torch.cli import common, text_to_img, text_to_mscoco
     from cfgpp_tpu_torch.engine import ComposeCallback, DiffusionEngine
     from cfgpp_tpu_torch.utils.img import (load_image, normalize, read_png,
@@ -2263,11 +2306,9 @@ def phase_mscoco(fa, tk, tc, card: str) -> dict:
         return rel_l2(a, b), int((a - b).abs().max().item())
 
     runs = {}
-    with tempfile.TemporaryDirectory() as tmp, \
-            mock.patch.object(text_to_mscoco, "build_engine", build_engine), \
+    with mock.patch.object(text_to_mscoco, "build_engine", build_engine), \
             mock.patch.object(text_to_img, "build_engine", build_engine), \
             mock.patch.object(DiffusionEngine, "sample_batch", timed_batch):
-        tmp = Path(tmp)
         prompt_file = tmp / "prompts.txt"
         prompt_file.write_text("\n".join(MSCOCO_PROMPTS) + "\n")
         n_prompts = len(MSCOCO_PROMPTS)
@@ -2434,6 +2475,390 @@ def phase_mscoco(fa, tk, tc, card: str) -> dict:
     return runs
 
 
+def per_second(fn, n: int) -> float:
+    """Items a second of ``fn`` over ``n`` items, host clock."""
+    t0 = time.perf_counter()
+    fn()
+    return n / (time.perf_counter() - t0)
+
+
+def tower_rate(fn, batch: int, reps: int = 3) -> float:
+    """Items a second of one batched tower call on the card (CUDA events
+    over ``reps`` calls after a warm-up)."""
+    return batch / (time_ms(fn, reps) / 1e3)
+
+
+def phase_metrics(fa, tk, tc, card: str, images: Path, work: Path) -> dict:
+    """The metric CLI on phase 11's ten 1024^2 images: full-width towers
+    (InceptionV3 at 299^2, CLIP ViT-L/14 at 224^2, VGG16 LPIPS at 1024^2)
+    with seeded random weights written in the published layouts
+    (``tools/metric_synth.py``: a pytorch-fid ``.pth``, torchvision's VGG16
+    and the LPIPS heads as ``.pth``, a combined CLIPModel ``.safetensors``
+    by the port's own writer, a BPE vocabulary in the real files' layout).
+    Paired labels: each image plus seeded integer noise in [-8, 8], as
+    PNGs of the same names; distribution labels: the committed JPEG
+    fixtures (COCO's mixed sizes, so Inception takes its host-resize path).
+    Checks: the fixtures decode bit for bit to their stored PIL decodes;
+    ``calculate_metrics.main`` with every flag and ``--device cuda`` (no
+    kernel of the port launched) gives every key finite, 10 pairs, PSNR and
+    MSE exactly numpy's on the same uint8 arrays, CLIP-score in (0, 100],
+    LPIPS >= 0; LPIPS of the images against themselves exactly 0; FID and
+    CLIP-FID against the JPEG labels; the card's Inception, CLIP image and
+    text features and LPIPS values against the port on the CPU (TF32 off);
+    FIDs from the card's features against the CPU's; a self-FID; the CLI's
+    FID, CLIP-FID, CLIP-score and LPIPS against the same metrics from the
+    CPU's features (every text-image cosine positive, and a shifted pairing
+    outside the tolerance).  Records
+    decode, host-transform and tower rates, the CLI's wall time, peak
+    device memory and the FID with cuDNN TF32 on, and projects a
+    10k-image FID against COCO's references.  Returns the numbers."""
+    from importlib import import_module
+
+    from cfgpp_tpu_torch.cli import calculate_metrics
+    from cfgpp_tpu_torch.configs import CLIPTextConfig
+    from cfgpp_tpu_torch.metrics.fid import compute_stats, fid_from_features
+    from cfgpp_tpu_torch.metrics.lpips import LPIPS, convert_vgg16_lpips
+    from cfgpp_tpu_torch.models.clip import CLIPTextModel
+    from cfgpp_tpu_torch.tools import metric_synth
+    from cfgpp_tpu_torch.utils.img import (AsyncImageReader, AsyncPngWriter,
+                                           read_image, read_png)
+    from cfgpp_tpu_torch.utils.jpeg import decode_jpeg
+    from cfgpp_tpu_torch.weights.convert import clip_text_from_hf, load_module_
+    from cfgpp_tpu_torch.weights.safetensors_io import save_file
+    from cfgpp_tpu_torch.weights.tokenizer import load_tokenizer
+
+    inception = import_module("cfgpp_tpu_torch.metrics.inception")
+    clip_score = import_module("cfgpp_tpu_torch.metrics.clip_score")
+    started = time.perf_counter()
+    names = sorted(p.name for p in images.glob("*.png"))
+    check(names == [f"{i:05d}.png" for i in range(len(MSCOCO_PROMPTS))],
+          f"phase 12: phase 11's images {names}")
+    rec: dict = {}
+
+    # 1. weights in the published layouts, and a vocabulary
+    wdir = work / "metric_weights"
+    wdir.mkdir()
+    ckpt = {"inception": wdir / "pt_inception-2015-12-05.pth",
+            "vgg": wdir / "vgg16.pth", "lpips": wdir / "lpips_vgg.pth",
+            "clip": wdir / "clip_vit_large_patch14.safetensors"}
+    t0 = time.perf_counter()
+    torch.save(metric_synth.inception_state(0), ckpt["inception"])
+    torch.save(metric_synth.vgg16_state(1), ckpt["vgg"])
+    torch.save(metric_synth.lpips_heads_state(2), ckpt["lpips"])
+    clip_state = metric_synth.clip_model_state(3)
+    save_file(clip_state, ckpt["clip"])
+    n_clip = sum(v.numel() for k, v in clip_state.items()
+                 if not k.endswith("position_ids"))
+    del clip_state
+    tokenizer = metric_synth.write_clip_vocab(wdir / "tokenizer")
+    print(f"  random weights written in {time.perf_counter() - t0:.2f} s:"
+          + ", ".join(f" {k} {p.stat().st_size / 1e6:.1f} MB"
+                      for k, p in ckpt.items())
+          + f" (CLIP ViT-L/14 {n_clip / 1e6:.1f} M parameters)", flush=True)
+
+    # 2. inputs: paired labels, prompts, the JPEG fixtures
+    gens = {n: read_png((images / n).read_bytes()) for n in names}
+    paired = work / "labels_paired"
+    rng = np.random.default_rng(SEED)
+    labels = {}
+    with AsyncPngWriter() as writer:
+        for n in names:
+            noise = rng.integers(-LABEL_NOISE, LABEL_NOISE + 1, gens[n].shape)
+            labels[n] = np.clip(gens[n].astype(np.int64) + noise, 0,
+                                255).astype(np.uint8)
+            writer.submit(paired / n, labels[n])
+    check(not writer.errors, f"paired label writes failed: {writer.errors}")
+    prompts = work / "metric_prompts.txt"
+    prompts.write_text("\n".join(MSCOCO_PROMPTS) + "\n")
+    jpgs = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    check(len(jpgs) == 4, f"JPEG fixtures {jpgs}")
+    gen_paths = [str(images / n) for n in names]
+    paired_paths = [str(paired / n) for n in names]
+    jpg_paths = [str(p) for p in jpgs]
+
+    # 3. the fixtures decode bit for bit to their stored PIL decodes
+    for jpg in jpgs:
+        got = read_image(jpg)
+        want = read_png(jpg.with_suffix(".png").read_bytes())
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"{jpg.name}: the decoder differs from PIL's stored decode")
+    print(f"  JPEG fixtures bit for bit PIL's decodes: "
+          + ", ".join(f"{p.name} {read_image(p).shape[1]}x"
+                      f"{read_image(p).shape[0]}" for p in jpgs), flush=True)
+
+    # 4. the CLI with every flag on the card
+    for mod in (fa, tk, tc):
+        mod.reset_launches()
+    reads = counters(fa, tk, tc)
+    out_json = work / "metrics.json"
+    argv = ["--input_dir", images, "--label_dir", paired,
+            "--inception_ckpt", ckpt["inception"], "--clip_ckpt", ckpt["clip"],
+            "--prompts", prompts, "--tokenizer_dir", tokenizer,
+            "--vgg_ckpt", ckpt["vgg"], "--lpips_ckpt", ckpt["lpips"],
+            "--out", out_json, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    res, rec["cli_s"] = timed(lambda: calculate_metrics.main(
+        [str(a) for a in argv]))
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launched = {name: read() for name, read in reads.items()}
+    keys = ["psnr", "mse", "n_pairs", "fid", "clip_fid", "clip_score", "lpips"]
+    print(f"  calculate_metrics (every flag, --device cuda, TF32 off):"
+          f" {json.dumps(res)} in {rec['cli_s']:.2f} s, peak device memory"
+          f" {rec['peak_gib']:.2f} GiB, kernel launches {launched} [{card}]",
+          flush=True)
+    check(json.loads(out_json.read_text()) == res, "--out differs from stdout")
+    check(list(res) == keys, f"metric keys {list(res)}")
+    check(all(np.isfinite(res[k]) for k in keys), f"non-finite metric {res}")
+    check(res["n_pairs"] == len(names), f"n_pairs {res['n_pairs']}")
+    check(not any(launched.values()), f"the metric path launched {launched}")
+    mses = [np.mean((gens[n].astype(np.float64)
+                     - labels[n].astype(np.float64)) ** 2) for n in names]
+    psnrs = [10.0 * np.log10(255.0 ** 2 / m) for m in mses]
+    check(res["mse"] == float(np.mean(mses))
+          and res["psnr"] == float(np.mean(psnrs)),
+          f"psnr/mse {res['psnr']}/{res['mse']} against numpy's"
+          f" {np.mean(psnrs)}/{np.mean(mses)}")
+    check(0.0 < res["clip_score"] <= 100.0, f"clip_score {res['clip_score']}")
+    check(res["lpips"] >= 0.0, f"lpips {res['lpips']}")
+
+    # 5. LPIPS of the images against themselves
+    self_lpips = calculate_metrics.lpips_metric(
+        images, images, str(ckpt["vgg"]), str(ckpt["lpips"]), device="cuda")
+    check(self_lpips == 0.0, f"LPIPS(A, A) = {self_lpips}")
+
+    # 6. features on the card, FID and CLIP-FID against the JPEG labels
+    def features(device: str) -> dict:
+        return {
+            "inception gen": inception.inception_features(
+                gen_paths, str(ckpt["inception"]), device=device),
+            "inception jpeg": inception.inception_features(
+                jpg_paths, str(ckpt["inception"]), device=device),
+            "inception paired": inception.inception_features(
+                paired_paths, str(ckpt["inception"]), device=device),
+            "clip image gen": clip_score.clip_image_features(
+                gen_paths, str(ckpt["clip"]), device=device),
+            "clip image jpeg": clip_score.clip_image_features(
+                jpg_paths, str(ckpt["clip"]), device=device),
+            "clip image paired": clip_score.clip_image_features(
+                paired_paths, str(ckpt["clip"]), device=device),
+            "clip text": clip_score.clip_text_features(
+                MSCOCO_PROMPTS, str(ckpt["clip"]),
+                tokenizer_dir=str(tokenizer), device=device)}
+
+    def fids(f: dict) -> dict:
+        return {"fid": fid_from_features(f["inception gen"],
+                                         f["inception jpeg"]),
+                "clip_fid": fid_from_features(f["clip image gen"],
+                                              f["clip image jpeg"])}
+
+    card_f = features("cuda")
+    card_fid = fids(card_f)
+    check(all(np.isfinite(v) for v in card_fid.values()),
+          f"FID against the JPEG labels {card_fid}")
+
+    # 7. the port on the CPU for the same files
+    cpu_f, cpu_s = timed(lambda: features("cpu"))
+    cpu_fid = fids(cpu_f)
+    feat_rel = {k: float(np.linalg.norm(card_f[k] - cpu_f[k])
+                         / np.linalg.norm(cpu_f[k])) for k in card_f}
+    lp_state = convert_vgg16_lpips(clip_score._load_state(str(ckpt["vgg"])),
+                                   clip_score._load_state(str(ckpt["lpips"])))
+    devices = (("card", "cuda"), ("cpu", "cpu"))
+    lp = {}
+    for key, dev in devices:
+        lp[key] = LPIPS().to(dev).eval()
+        load_module_(lp[key], lp_state, "lpips")
+    def unit(arrays: dict, lo: int, hi: int) -> np.ndarray:
+        return np.stack([arrays[n] for n in names[lo:hi]]
+                        ).astype(np.float32) / 127.5 - 1.0
+
+    pa, pb = unit(gens, 0, LPIPS_CPU_PAIRS), unit(labels, 0, LPIPS_CPU_PAIRS)
+    b_lp = METRIC_BATCH["lpips"]
+    with torch.no_grad():
+        lp_vals = {"cpu": lp["cpu"](torch.from_numpy(pa),
+                                    torch.from_numpy(pb)).numpy(),
+                   "card": np.concatenate([lp["card"](
+                       torch.from_numpy(unit(gens, i, i + b_lp)).cuda(),
+                       torch.from_numpy(unit(labels, i, i + b_lp)).cuda()
+                   ).cpu().numpy() for i in range(0, len(names), b_lp)])}
+    feat_rel["lpips values"] = float(
+        np.linalg.norm(lp_vals["card"][:LPIPS_CPU_PAIRS] - lp_vals["cpu"])
+        / np.linalg.norm(lp_vals["cpu"]))
+    fid_rel = {k: abs(card_fid[k] - cpu_fid[k]) / abs(cpu_fid[k])
+               for k in card_fid}
+    stats = compute_stats(card_f["inception gen"])
+    self_fid = fid_from_features(card_f["inception gen"],
+                                 card_f["inception gen"])
+    trace = 2.0 * float(np.trace(stats[1]))
+    print(f"  against the JPEG labels (mixed sizes, host resize): FID"
+          f" {card_fid['fid']:.6f} (CPU {cpu_fid['fid']:.6f}, rel"
+          f" {fid_rel['fid']:.3e}), CLIP-FID {card_fid['clip_fid']:.6e} (CPU"
+          f" {cpu_fid['clip_fid']:.6e}, rel {fid_rel['clip_fid']:.3e}; tol"
+          f" {METRIC_FID_REL_TOL}); card against CPU features rel-L2"
+          f" {', '.join(f'{k} {v:.3e}' for k, v in feat_rel.items())} (tol"
+          f" {METRIC_REL_L2_TOL}; LPIPS of {LPIPS_CPU_PAIRS} pairs, card"
+          f" {lp_vals['card'][:LPIPS_CPU_PAIRS].tolist()}); self-FID {self_fid:.3e} ="
+          f" {abs(self_fid) / trace:.3e} x (tr S1 + tr S2) (tol"
+          f" {SELF_FID_TRACE_SHARE}); CPU features in {cpu_s:.1f} s [{card}]",
+          flush=True)
+    for k, v in feat_rel.items():
+        check(v <= METRIC_REL_L2_TOL, f"{k}: card against CPU rel-L2 {v}")
+    for k, v in fid_rel.items():
+        check(v <= METRIC_FID_REL_TOL, f"{k}: card against CPU rel {v}")
+    check(abs(self_fid) <= SELF_FID_TRACE_SHARE * trace,
+          f"self-FID {self_fid} against the trace {trace}")
+
+    # 7b. the CLI's own numbers against the same metrics worked out from the
+    # CPU's features of the same files (LPIPS: the mean of the card's
+    # per-pair values above, whose first pairs the CPU's hold); CLIP-score
+    # with every cosine positive (no clamp at 0), and a pairing shifted by
+    # one image would miss it
+    cos = np.sum(cpu_f["clip text"] * cpu_f["clip image gen"], axis=-1)
+    want = {"fid": fid_from_features(cpu_f["inception gen"],
+                                     cpu_f["inception paired"]),
+            "clip_fid": fid_from_features(cpu_f["clip image gen"],
+                                          cpu_f["clip image paired"]),
+            "clip_score": clip_score.clip_score_from_features(
+                cpu_f["clip text"], cpu_f["clip image gen"]),
+            "lpips": float(np.mean(lp_vals["card"]))}
+    cli_tol = {"fid": METRIC_FID_REL_TOL, "clip_fid": METRIC_FID_REL_TOL,
+               "clip_score": METRIC_REL_L2_TOL, "lpips": METRIC_REL_L2_TOL}
+    cli_rel = {k: abs(res[k] - w) / abs(w) for k, w in want.items()}
+    shifted = clip_score.clip_score_from_features(
+        cpu_f["clip text"], np.roll(cpu_f["clip image gen"], 1, axis=0))
+    shifted_rel = abs(shifted - want["clip_score"]) / want["clip_score"]
+    print(f"  the CLI against the metrics from the CPU's features: "
+          + ", ".join(f"{k} {res[k]:.6e} against {w:.6e} (rel"
+                      f" {cli_rel[k]:.3e}, tol {cli_tol[k]})"
+                      for k, w in want.items())
+          + f"; text-image cosines {cos.min():.4f} to {cos.max():.4f};"
+          f" CLIP-score with the images shifted by one {shifted:.6f} (rel"
+          f" {shifted_rel:.3e}) [{card}]", flush=True)
+    for k, v in cli_rel.items():
+        check(v <= cli_tol[k], f"the CLI's {k} {res[k]} against {want[k]}"
+              f" from the CPU's features: rel {v}")
+    check(cos.min() > 0.0, f"text-image cosines {cos.tolist()}: CLIP-score"
+          " would be clamped")
+    check(shifted_rel > cli_tol["clip_score"],
+          f"CLIP-score with the images shifted by one {shifted} is within"
+          f" the tolerance of the paired {want['clip_score']}")
+
+    # 8. cuDNN TF32 on (torch's default, the CLI's setting) against off
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_fid = fid_from_features(*(
+            inception.inception_features(p, str(ckpt["inception"]),
+                                         device="cuda")
+            for p in (gen_paths, jpg_paths)))
+        inc = inception._cached_extractor(str(ckpt["inception"]), "cuda")
+        x_inc = torch.rand(METRIC_BATCH["inception"], SDXL_RESOLUTION,
+                           SDXL_RESOLUTION, 3, device="cuda")
+        lp_a = torch.from_numpy(np.concatenate(
+            [pa] * (METRIC_BATCH["lpips"] // LPIPS_CPU_PAIRS))).cuda()
+        lp_b = torch.from_numpy(np.concatenate(
+            [pb] * (METRIC_BATCH["lpips"] // LPIPS_CPU_PAIRS))).cuda()
+        with torch.no_grad():
+            rec["inception img/s tf32"] = tower_rate(
+                lambda: inc(x_inc), METRIC_BATCH["inception"])
+            rec["lpips pairs/s tf32"] = tower_rate(
+                lambda: lp["card"](lp_a, lp_b), METRIC_BATCH["lpips"], reps=2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    rec["fid tf32 rel"] = abs(tf32_fid - card_fid["fid"]) / abs(card_fid["fid"])
+    print(f"  FID against the JPEG labels with cuDNN TF32 on {tf32_fid:.6f},"
+          f" off {card_fid['fid']:.6f}: rel {rec['fid tf32 rel']:.3e}"
+          f" [{card}]", flush=True)
+
+    # 9. rates: towers on the card (TF32 off), decodes and host transforms
+    vision = clip_score._cached_vision_extractor(str(ckpt["clip"]), "cuda")
+    text = CLIPTextModel(CLIPTextConfig(projection_dim=768)).cuda().eval()
+    load_module_(text, clip_text_from_hf(clip_score._load_state(
+        str(ckpt["clip"]))), "clip text")
+    ids = torch.from_numpy(load_tokenizer(str(tokenizer))(
+        [MSCOCO_PROMPTS[i % len(MSCOCO_PROMPTS)]
+         for i in range(METRIC_BATCH["clip_text"])])).long().cuda()
+    x_clip = torch.randn(METRIC_BATCH["clip_image"], 224, 224, 3,
+                         device="cuda")
+    with torch.no_grad():
+        rec["inception img/s"] = tower_rate(lambda: inc(x_inc),
+                                            METRIC_BATCH["inception"])
+        rec["clip image img/s"] = tower_rate(lambda: vision(x_clip),
+                                             METRIC_BATCH["clip_image"])
+        rec["clip text prompts/s"] = tower_rate(lambda: text(ids),
+                                                METRIC_BATCH["clip_text"])
+        rec["lpips pairs/s"] = tower_rate(lambda: lp["card"](lp_a, lp_b),
+                                          METRIC_BATCH["lpips"], reps=2)
+    jpg640 = JPEG_FIXTURES / "coco_640x480.jpg"
+    data640 = jpg640.read_bytes()
+    rec["jpeg/s one core"] = per_second(
+        lambda: [decode_jpeg(data640) for _ in range(5)], 5)
+
+    def drain(paths, transform=None):
+        """Items a second through a new reader, after its first item (the
+        pool's start-up, recorded apart as ``first_s``)."""
+        t0 = time.perf_counter()
+        with AsyncImageReader(paths, transform=transform) as reader:
+            reader.get(0)
+            t1 = time.perf_counter()
+            for i in range(1, len(paths)):
+                reader.get(i)
+            t2 = time.perf_counter()
+        rec["first_s"] = max(rec.get("first_s", 0.0), t1 - t0)
+        return (len(paths) - 1) / (t2 - t1)
+
+    n_pool = 16 * min(8, os.cpu_count() or 1)
+    rec["jpeg/s pool"] = drain([jpg640] * n_pool)
+    rec["jpeg+299/s pool"] = drain([jpg640] * n_pool, inception._to_299)
+    rec["jpeg+224/s pool"] = drain([jpg640] * n_pool, clip_score.load224)
+    gen_bytes = [(images / n).read_bytes() for n in names]
+    rec["png/s one thread"] = per_second(
+        lambda: [read_png(b) for b in gen_bytes], len(gen_bytes))
+    rec["png/s threads"] = drain(gen_paths * 8)
+    rec["png+224/s threads"] = drain(gen_paths * 4, clip_score.load224)
+    # a 10k-image FID of the generated PNGs against COCO's JPEGs: each
+    # directory's decodes overlap its tower calls (the reader's window)
+    t_gen = max(TEN_K / rec["png/s threads"], TEN_K / rec["inception img/s tf32"])
+    t_ref = max(TEN_K / rec["jpeg+299/s pool"],
+                TEN_K / rec["inception img/s tf32"])
+    rec["fid10k_s"] = t_gen + t_ref
+    slowest = min(("JPEG decode + resize (host)", rec["jpeg+299/s pool"]),
+                  ("PNG decode (host)", rec["png/s threads"]),
+                  ("Inception (card)", rec["inception img/s tf32"]),
+                  key=lambda kv: kv[1])[0]
+    print(f"  rates: Inception {rec['inception img/s']:.1f} img/s (b50, 1024^2"
+          f" in; TF32 on {rec['inception img/s tf32']:.1f}), CLIP image"
+          f" {rec['clip image img/s']:.1f} img/s (b64), CLIP text"
+          f" {rec['clip text prompts/s']:.1f} prompts/s (b256), LPIPS"
+          f" {rec['lpips pairs/s']:.2f} pairs/s (b8 at 1024^2; TF32 on"
+          f" {rec['lpips pairs/s tf32']:.2f}); JPEG 640x480 4:2:0"
+          f" {rec['jpeg/s one core']:.2f}/s on one core,"
+          f" {rec['jpeg/s pool']:.2f}/s with the pool"
+          f" ({min(8, os.cpu_count() or 1)} processes, {n_pool} decodes,"
+          f" after a start-up of at most {rec['first_s']:.2f} s to the first"
+          f" image; with the 299 bilinear"
+          f" {rec['jpeg+299/s pool']:.2f}/s, with load224"
+          f" {rec['jpeg+224/s pool']:.2f}/s); PNG 1024^2"
+          f" {rec['png/s one thread']:.2f}/s on one thread,"
+          f" {rec['png/s threads']:.2f}/s on the reader's threads"
+          f" ({rec['png+224/s threads']:.2f}/s with load224) [{card}]",
+          flush=True)
+    print(f"  projected FID of 10k generated 1024^2 PNGs against 10k COCO"
+          f" JPEGs (TF32 on, as the CLI runs): {rec['fid10k_s']:.0f} s"
+          f" ({t_gen:.0f} s the generated, {t_ref:.0f} s the references);"
+          f" set by {slowest} [{card}]", flush=True)
+
+    del vision, text, inc, lp
+    inception._cached_extractor.cache_clear()
+    clip_score._cached_vision_extractor.cache_clear()
+    clip_score._load_state.cache_clear()
+    for p in ckpt.values():
+        p.unlink()
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - started
+    print(f"  phase 12 wall time {rec['wall_s']:.1f} s [{card}]", flush=True)
+    return rec
+
+
 # name: (source, the TPU kernel it replaces, the path whose run counts its
 # launches).
 KERNEL_SOURCES = {
@@ -2588,14 +3013,24 @@ def main() -> None:
           f" request each of {', '.join(LIGHTNING_SOLVERS)} in"
           f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
-    t0 = time.perf_counter()
-    launches.update(phase_mscoco(fa, tk, tc, card))
-    print(f"phase 11 ok: text_to_mscoco on sdxl at {SDXL_RESOLUTION}^2,"
-          f" {MSCOCO_SOLVER} lambda={MSCOCO_GUIDANCE} {MSCOCO_NFE} NFE"
-          f" --batch_size {MSCOCO_BATCH} ({len(MSCOCO_PROMPTS)} prompts),"
-          " --resume, batch invariance, two ranks, text_to_img --callbacks"
-          f" and the unrolled mode in {time.perf_counter() - t0:.1f} s"
-          f" [{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        t0 = time.perf_counter()
+        launches.update(phase_mscoco(fa, tk, tc, card, work))
+        print(f"phase 11 ok: text_to_mscoco on sdxl at {SDXL_RESOLUTION}^2,"
+              f" {MSCOCO_SOLVER} lambda={MSCOCO_GUIDANCE} {MSCOCO_NFE} NFE"
+              f" --batch_size {MSCOCO_BATCH} ({len(MSCOCO_PROMPTS)} prompts),"
+              " --resume, batch invariance, two ranks, text_to_img"
+              " --callbacks and the unrolled mode in"
+              f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+        t0 = time.perf_counter()
+        phase_metrics(fa, tk, tc, card, work / "coco", work)
+        print("phase 12 ok: calculate_metrics on phase 11's images with"
+              " every metric (InceptionV3 FID, CLIP ViT-L/14 CLIP-FID and"
+              " CLIP-score, VGG-LPIPS, PSNR/MSE) at full width, the JPEG"
+              " fixtures bit for bit, card against CPU features in"
+              f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():

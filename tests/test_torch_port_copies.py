@@ -1,14 +1,16 @@
 """The port's copies of the JAX package's numpy-only modules, held equal.
 
 ``cfgpp_tpu_torch/configs.py``, ``schedules/ddim.py``,
-``schedules/karras.py`` and ``weights/tokenizer.py`` are copies of their
-``cfgpp_tpu`` namesakes, so that the port imports nothing of the JAX
-package.  Each test compares the copy with the original on the same inputs:
-every bundle config field by field, the DDIM tables array by array, the
-Karras helpers' outputs, and token ids from the hash fallback and from a
-small BPE vocabulary.  The last test imports every
+``schedules/karras.py``, ``weights/tokenizer.py``, ``metrics/fid.py`` and
+``metrics/functional.py`` are copies of their ``cfgpp_tpu`` namesakes, so
+that the port imports nothing of the JAX package.  Each test compares the
+copy with the original on the same inputs: every bundle config field by
+field, the DDIM tables array by array, the Karras helpers' outputs, token
+ids from the hash fallback and from a small BPE vocabulary, and the FID
+statistics and paired metrics value by value.  The last test imports every
 module of the port in a fresh interpreter and finds neither the JAX
-package nor jax, jaxlib or flax loaded.
+package nor jax, jaxlib or flax loaded, nor PIL, torchvision or
+safetensors (the card's machine has none of them).
 """
 
 import dataclasses
@@ -21,10 +23,13 @@ import numpy as np
 import pytest
 
 from cfgpp_tpu import configs as jax_configs
+from cfgpp_tpu.metrics import fid as jax_fid
+from cfgpp_tpu.metrics import functional as jax_functional
 from cfgpp_tpu.schedules import ddim as jax_ddim
 from cfgpp_tpu.schedules import karras as jax_karras
 from cfgpp_tpu.weights import tokenizer as jax_tokenizer
 from cfgpp_tpu_torch import configs
+from cfgpp_tpu_torch.metrics import fid, functional
 from cfgpp_tpu_torch.schedules import ddim, karras
 from cfgpp_tpu_torch.weights import tokenizer
 
@@ -137,6 +142,53 @@ def test_clip_tokenizer_ids_equal(tmp_path):
     assert len(set(ids[1].tolist())) > 10   # the BPE ran, not only padding
 
 
+def _metric_cases():
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(12, 5))
+    b = rng.normal(1.0, 2.0, size=(9, 5))
+    img = rng.integers(0, 256, (8, 8, 3)).astype(np.float32)
+    noisy = np.clip(img + rng.integers(-8, 9, img.shape), 0, 255)
+    return [
+        ("fid", "compute_stats", (a,), {}),
+        ("fid", "frechet_distance", (*jax_fid.compute_stats(a),
+                                     *jax_fid.compute_stats(b)), {}),
+        ("fid", "frechet_distance", (*jax_fid.compute_stats(a),
+                                     *jax_fid.compute_stats(a)), dict(eps=0.0)),
+        ("fid", "fid_from_features", (a, b), {}),
+        ("fid", "fid_from_features", (a, a), {}),
+        ("functional", "mse", (img, noisy), {}),
+        ("functional", "psnr", (img, noisy), {}),
+        ("functional", "psnr", (img, img), {}),
+        ("functional", "psnr", (img / 255.0, noisy / 255.0), dict(data_range=1.0)),
+        ("functional", "mnc", (img, noisy), {}),
+        ("functional", "mnc", (img, 0 * img), {}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_metric_cases())))
+def test_metric_functions_equal(case):
+    mod, name, args, kw = _metric_cases()[case]
+    port, orig = {"fid": (fid, jax_fid),
+                  "functional": (functional, jax_functional)}[mod]
+    got, want = (r if isinstance(r, tuple) else (r,) for r in (
+        getattr(port, name)(*args, **kw), getattr(orig, name)(*args, **kw)))
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert type(x) is type(y)
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype and np.array_equal(x, y), (name, x, y)
+
+
+@pytest.mark.parametrize("mod", ["fid", "functional"])
+def test_metric_names_equal(mod):
+    port, orig = {"fid": (fid, jax_fid),
+                  "functional": (functional, jax_functional)}[mod]
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
+                              and callable(getattr(m, n))
+                              and getattr(m, n).__module__ == m.__name__)
+    assert public(port) == public(orig)
+
+
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     interpreter."""
@@ -157,10 +209,20 @@ def test_port_imports_nothing_of_jax():
         "            'cfgpp_tpu_torch.utils.log',\n"
         "            'cfgpp_tpu_torch.engine.pipeline',\n"
         "            'cfgpp_tpu_torch.solvers.registry',\n"
-        "            'cfgpp_tpu_torch.tools.profile_requests'):\n"
+        "            'cfgpp_tpu_torch.tools.profile_requests',\n"
+        "            'cfgpp_tpu_torch.metrics.inception',\n"
+        "            'cfgpp_tpu_torch.metrics.lpips',\n"
+        "            'cfgpp_tpu_torch.metrics.clip_score',\n"
+        "            'cfgpp_tpu_torch.metrics.fid',\n"
+        "            'cfgpp_tpu_torch.metrics.functional',\n"
+        "            'cfgpp_tpu_torch.models.clip_vision',\n"
+        "            'cfgpp_tpu_torch.utils.jpeg',\n"
+        "            'cfgpp_tpu_torch.cli.calculate_metrics',\n"
+        "            'cfgpp_tpu_torch.tools.metric_synth'):\n"
         "    assert new in names, new\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('cfgpp_tpu', 'jax', 'jaxlib', 'flax'))\n"
+        "             ('cfgpp_tpu', 'jax', 'jaxlib', 'flax', 'PIL',\n"
+        "              'torchvision', 'safetensors'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO)

@@ -7,7 +7,7 @@ after a resize down, up and to a square from a non-square image (the
 measured difference is 0 levels at every size tried, so the tolerance is
 exact equality).  Each PNG row filter is written by this file's own encoder
 and read back; each colour mode comes from PIL's writer.  Other formats
-raise ``ValueError`` and name the format.
+(and CMYK JPEGs) raise ``ValueError`` and name the format.
 """
 
 import struct
@@ -114,9 +114,17 @@ def test_save_then_load_round_trip(tmp_path):
 @pytest.mark.parametrize("fmt,name", [("JPEG", "JPEG"), ("GIF", "GIF"),
                                       ("BMP", "BMP"), ("TIFF", "TIFF")])
 def test_other_formats_raise(tmp_path, fmt, name):
+    """Formats other than PNG and JPEG, and a JPEG kind the decoder does not
+    read (CMYK), raise and name the format."""
     path = tmp_path / "img.bin"
-    Image.fromarray(_smooth(16, 16)).save(path, format=fmt)
-    with pytest.raises(ValueError, match=f"PNG files only.*{name}"):
+    img = Image.fromarray(_smooth(16, 16))
+    if fmt == "JPEG":
+        img.convert("CMYK").save(path, format=fmt)
+        match = "CMYK JPEG"
+    else:
+        img.save(path, format=fmt)
+        match = f"PNG and JPEG files only.*{name}"
+    with pytest.raises(ValueError, match=match):
         load_image(path, size=16)
 
 
