@@ -56,7 +56,11 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
                         choices=("bfloat16", "float32"),
                         help="float32 runs on the card too: the f32 "
                              "attention kernel, and with --quant the int8 "
-                             "kernels on f32 activations")
+                             "kernels on f32 activations; it turns TF32 off")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="capture a torch.profiler trace of the run "
+                             "(host operators and CUDA kernels) into this "
+                             "directory as a Chrome trace (*.pt.trace.json)")
     parser.add_argument("--quant", type=str, default=None,
                         choices=("dense", "all"),
                         help="opt-in int8 W8A8 UNet (numerics differ from "
@@ -78,10 +82,35 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
     return args
 
 
+def maybe_profile(args):
+    """Context manager: a ``torch.profiler`` trace when --profile_dir is
+    set."""
+    import contextlib
+
+    if getattr(args, "profile_dir", None):
+        from cfgpp_tpu_torch.utils.profiling import trace
+        return trace(args.profile_dir)
+    return contextlib.nullcontext()
+
+
+def f32_without_tf32(dtype: str) -> None:
+    """Under ``--dtype float32``, turn TF32 off for cuDNN's convs (and
+    cuBLAS's matmuls, off by default): torch's default cuDNN TF32 rounds
+    every f32 conv's inputs to 10 mantissa bits, which moved an f32 SD-1.5
+    UNet call and VAE encode by rel-L2 1.2e-3 on an NVIDIA H100 80GB HBM3
+    at 700 W, outside the f32 path's 1e-3 bound (``chip_smoke.py`` phase 6).  Under bf16 torch's
+    defaults stay."""
+    if dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def build_engine(args) -> DiffusionEngine:
     """The JAX CLI's order (``cfgpp_tpu/cli/common.py:67-89``): the base
     bundle from ``--ckpt_dir`` or seeded random weights, the
-    ``--light_ckpt`` single file over it, then ``--quant``."""
+    ``--light_ckpt`` single file over it, then ``--quant``.  ``--dtype
+    float32`` also turns TF32 off (`f32_without_tf32`)."""
+    f32_without_tf32(args.dtype)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if args.ckpt_dir:
         bundle = ModelBundle.from_pretrained(args.ckpt_dir, args.model,

@@ -10,14 +10,17 @@ sdxl_lightning --ckpt_dir D --light_ckpt F --method ddim_cfg++_lightning
 ``--ckpt_dir`` and ``--light_ckpt`` (see ``cli/common.py``), else from a
 seed.  Writes ``<workdir>/result/generated.png``; with ``--callbacks
 draw_tweedie draw_noisy`` also the decoded z0t / zt of every
-``--callback_frequency``-th step under ``<workdir>/record/``.
+``--callback_frequency``-th step under ``<workdir>/record/``; with
+``--profile_dir D`` a ``torch.profiler`` trace of the request (`sample`)
+as a Chrome trace file under D.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from cfgpp_tpu_torch.cli.common import add_common_args, build_engine, parse_args
+from cfgpp_tpu_torch.cli.common import (add_common_args, build_engine,
+                                        maybe_profile, parse_args)
 from cfgpp_tpu_torch.engine.callbacks import ComposeCallback
 from cfgpp_tpu_torch.utils.img import save_image
 from cfgpp_tpu_torch.utils.log import create_workdir
@@ -47,11 +50,12 @@ def main(argv=None):
         prompt_2 = [args.null_prompt_2 if args.null_prompt_2 is not None
                     else args.null_prompt,
                     args.prompt_2 if args.prompt_2 is not None else args.prompt]
-    result = engine.sample(prompt=[args.null_prompt, args.prompt],
-                           prompt_2=prompt_2,
-                           cfg_guidance=args.cfg_guidance, seed=args.seed,
-                           resolution=args.resolution,
-                           callback_fn=callback, clip_skip=args.clip_skip)
+    with maybe_profile(args):
+        result = engine.sample(prompt=[args.null_prompt, args.prompt],
+                               prompt_2=prompt_2,
+                               cfg_guidance=args.cfg_guidance, seed=args.seed,
+                               resolution=args.resolution,
+                               callback_fn=callback, clip_skip=args.clip_skip)
     out = workdir / "result" / "generated.png"
     save_image(result.cpu().numpy(), out, normalize_img=True)
     print(f"saved {out}")

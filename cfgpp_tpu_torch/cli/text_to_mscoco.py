@@ -13,8 +13,10 @@ global prompt index, so image i does not depend on the batch size or on
 the process that drew it.  The tail batch is padded with "" to the full
 batch, and no file is written for a padded slot.  ``--resume`` skips a
 batch whose PNGs all exist; ``--callbacks`` writes one
-``record/<global_idx>/`` tree per sample.  ``generation_stats.json``
-counts only the images on disk.
+``record/<global_idx>/`` tree per sample; ``--profile_dir D`` writes a
+``torch.profiler`` Chrome trace of the whole generation loop under D (one
+file per process).  ``generation_stats.json`` counts only the images on
+disk.
 
 The device-to-host copy overlaps the next batch: a batch's uint8 images
 (converted on the device) are copied into pinned host memory without
@@ -42,7 +44,8 @@ from pathlib import Path
 
 import torch
 
-from cfgpp_tpu_torch.cli.common import add_common_args, build_engine, parse_args
+from cfgpp_tpu_torch.cli.common import (add_common_args, build_engine,
+                                        maybe_profile, parse_args)
 from cfgpp_tpu_torch.engine.callbacks import ComposeCallback
 from cfgpp_tpu_torch.parallel import data_parallel, shard_indices
 from cfgpp_tpu_torch.utils.img import AsyncPngWriter
@@ -123,7 +126,7 @@ def main(argv=None):
     bs = args.batch_size
     t0 = time.time()
     submitted = 0
-    with AsyncPngWriter(n_threads=8) as writer:
+    with maybe_profile(args), AsyncPngWriter(n_threads=8) as writer:
         for start in range(0, len(prompts), bs):
             chunk = prompts[start:start + bs]
             paths = [workdir / f"{i:05d}.png"

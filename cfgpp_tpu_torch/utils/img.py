@@ -1,11 +1,12 @@
-"""Image IO helpers (host side), counterpart of the parts of
-``cfgpp_tpu/utils/img.py`` that the engine and the CLIs need, and of
-``cfgpp_tpu/native``'s `AsyncPngWriter` and `AsyncPngReader`.
+"""Image IO helpers (host side), counterpart of ``cfgpp_tpu/utils/img.py``
+(with ``to_np``, ``fft2d`` and ``ifft2d``) and of ``cfgpp_tpu/native``'s
+`AsyncPngWriter` and `AsyncPngReader`.
 
 PNGs are written and read with the standard library's zlib, and JPEGs read
 by `cfgpp_tpu_torch.utils.jpeg`, so saving and loading an image needs no
-imaging package.  `read_image` reads 8-bit, non-interlaced greyscale, RGB
-and RGBA PNGs and the JPEGs PIL reads with its defaults (baseline and
+imaging package.  `read_image` reads every standard PNG (greyscale, RGB,
+palette, greyscale+alpha and RGBA at each of their bit depths, 1 to 16;
+interlaced or not) and the JPEGs PIL reads with its defaults (baseline and
 progressive, greyscale or YCbCr), each to the bit what PIL's
 ``convert("RGB")`` gives; any other format raises.  `resize` is PIL's
 8-bit bicubic and bilinear resample.  `AsyncPngWriter` encodes and writes
@@ -32,13 +33,31 @@ import numpy as np
 from cfgpp_tpu_torch.utils.jpeg import decode_jpeg, jpeg_size
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> samples per pixel: greyscale, RGB, greyscale+alpha, RGBA
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# colour type -> samples per pixel: greyscale, RGB, palette,
+# greyscale+alpha, RGBA; and the bit depths each may have
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+               6: (8, 16)}
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _JPEG_SOI = b"\xff\xd8\xff"
 # leading bytes of the formats read_image refuses, to name them
 _OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"),
                   (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
                   (b"RIFF", "a RIFF container (WebP)"))
+
+
+def to_np(x) -> np.ndarray:
+    """A tensor (any device; bf16 read as f32, whose values it holds
+    exactly) or an array-like -> a numpy array on the host."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def normalize(img: np.ndarray) -> np.ndarray:
@@ -208,19 +227,74 @@ def _unfilter_rows(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _png_samples(rows: np.ndarray, width: int, ch: int,
+                 depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] uint8 -> [h, width, ch] samples: uint8
+    for depths 1-8 (unscaled), big-endian uint16 for depth 16."""
+    h = rows.shape[0]
+    n = width * ch
+    if depth == 16:
+        return rows.view(">u2")[:, :n].astype(np.uint16).reshape(h, width, ch)
+    if depth < 8:            # samples packed from the most significant bit
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        rows = (bits * weights).sum(axis=2, dtype=np.uint8)
+    return rows[:, :n].reshape(h, width, ch)
+
+
+def _png_pixels(raw: bytes, w: int, h: int, ch: int, depth: int,
+                interlace: int) -> np.ndarray:
+    """The inflated IDAT stream -> [h, w, ch] samples, the seven Adam7
+    passes (each filtered as an image of its own) put in place when
+    ``interlace``."""
+    bits = ch * depth
+    bpp = max(1, bits // 8)             # the filters' byte distance
+    if not interlace:
+        rows = _unfilter_rows(raw, h, (w * bits + 7) // 8, bpp)
+        return _png_samples(rows, w, ch, depth)
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:          # an empty pass has no bytes
+            continue
+        stride = (pw * bits + 7) // 8
+        size = ph * (stride + 1)
+        rows = _unfilter_rows(raw[pos:pos + size], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _png_samples(rows, pw, ch, depth)
+        pos += size
+    if pos != len(raw):
+        raise ValueError(f"PNG: {len(raw)} bytes of interlaced pixel data,"
+                         f" expected {pos}")
+    return out
+
+
 def read_png(data: bytes) -> np.ndarray:
-    """An 8-bit non-interlaced greyscale, RGB or RGBA PNG -> [H, W, 3] uint8:
-    grey repeated over the three channels, alpha dropped (PIL's
-    ``convert("RGB")``)."""
+    """A PNG of any standard colour type, bit depth and interlace ->
+    [H, W, 3] uint8, to the bit PIL's ``Image.open(f).convert("RGB")``:
+
+    - greyscale repeated over the three channels, alpha dropped, a tRNS
+      chunk ignored (``convert("RGB")`` drops transparency);
+    - grey at depths 1, 2 and 4 scaled to 8 bits as PIL's modes "1", "L;2"
+      and "L;4" do (x 255, x 85, x 17);
+    - palette images (any depth) looked up in PLTE, and an index past its
+      last entry black, as PIL's palette is;
+    - 16-bit grey as PIL reads it, through mode ``I;16``, whose RGB
+      conversion clips at 255 (not the high byte): min(v, 255);
+    - 16-bit grey+alpha, RGB and RGBA keep each sample's high byte (PIL's
+      ``LA;16B``, ``RGB;16B`` and ``RGBA;16B`` raw modes);
+    - Adam7-interlaced files de-interlaced."""
     if not data.startswith(_PNG_SIGNATURE):
         raise _unknown_format(data)
-    pos, header, idat = len(_PNG_SIGNATURE), None, []
+    pos, header, palette, idat = len(_PNG_SIGNATURE), None, None, []
     while pos + 8 <= len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         pos += n + 12                      # length, tag, body, crc
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = body
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -228,13 +302,23 @@ def read_png(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError("PNG: no IHDR or no IDAT chunk")
     w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _PNG_CHANNELS or interlace:
+    if depth not in _PNG_DEPTHS.get(colour, ()) or interlace > 1:
         raise ValueError(f"PNG: bit depth {depth}, colour type {colour},"
-                         f" interlace {interlace}; load_image reads 8-bit"
-                         " non-interlaced greyscale, RGB and RGBA")
+                         f" interlace {interlace} is no standard PNG format")
     ch = _PNG_CHANNELS[colour]
-    px = _unfilter_rows(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    px = px.reshape(h, w, ch)
+    px = _png_pixels(zlib.decompress(b"".join(idat)), w, h, ch, depth,
+                     interlace)
+    if colour == 3:
+        if palette is None:
+            raise ValueError("PNG: a palette image without a PLTE chunk")
+        lut = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(palette[:len(palette) // 3 * 3], np.uint8)
+        lut[:len(entries) // 3] = entries.reshape(-1, 3)[:256]
+        return lut[px[..., 0]]
+    if depth == 16:
+        px = (np.minimum(px, 255) if colour == 0 else px >> 8).astype(np.uint8)
+    elif depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     return np.repeat(px[..., :1], 3, axis=-1) if ch < 3 else px[..., :3].copy()
 
 
@@ -363,6 +447,15 @@ def load_image(path, size: int = 512, centered: bool = True) -> np.ndarray:
     if centered:
         arr = arr / 127.5 - 1.0
     return arr[None]
+
+
+def fft2d(x: np.ndarray) -> np.ndarray:
+    """Centered 2D FFT over the spatial dims of NHWC (legacy parity helper)."""
+    return np.fft.fftshift(np.fft.fft2(x, axes=(1, 2)), axes=(1, 2))
+
+
+def ifft2d(x: np.ndarray) -> np.ndarray:
+    return np.fft.ifft2(np.fft.ifftshift(x, axes=(1, 2)), axes=(1, 2))
 
 
 def _is_jpeg_name(path: str) -> bool:

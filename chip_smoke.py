@@ -53,9 +53,11 @@ Phases, one status line each; any failure exits non-zero:
    (``--quant dense``: int8 W8A8 transformer projections).  Checks the
    images, the launches per request of each of the four kernels, one
    quantized UNet call against the same modules with every kernel's plain
-   version, the quant-drift gate of ``cfgpp_tpu/cli/parity_check.py``
-   (worst per-step rel-MAE of the first int8 request's trajectory against
-   the first exact request's, from the same prompt, seed and zT, < 0.15),
+   version, the quant-drift gate of ``python -m
+   cfgpp_tpu_torch.cli.parity_check --quant_drift`` (its
+   ``drift_summary``, the JAX CLI's rule: worst per-step rel-MAE of the
+   first int8 request's trajectory against the first exact request's, from
+   the same prompt, seed and zT, < 0.15),
    and peak device memory.
 5. int8-all slice: the same requests with ``--quant all`` (the int8 UNet of
    phase 4 plus int8 resnet and upsampler convs and the int8-score
@@ -67,7 +69,10 @@ Phases, one status line each; any failure exits non-zero:
    the kernel's launches in each; then one f32 ``--quant dense`` and one f32
    ``--quant all`` UNet call with the int8 kernels on f32 activations
    against the same modules with every kernel's plain version, with the
-   launches of each entry point per call.
+   launches of each entry point per call.  The f32 VAE encode and UNet
+   call also run once with cuDNN TF32 on (the CLIs' default; the smoke
+   turns it off), their rel-L2 against the plain-attention twin printed
+   beside the 1e-3 bound.
 7. solvers and inversion, on the bf16 bundle of phase 3: every SD solver
    loop (the 14 of the registry, and the inversion loop in both forms; and
    the 5 SDXL-Lightning loops at 4 NFE, trailing timesteps, w=1) run
@@ -171,12 +176,32 @@ Phases, one status line each; any failure exits non-zero:
    cuDNN TF32 on, tower rates, decode and host-resize rates, the CLI's
    wall time, peak device memory, and the projected time of a 10k-image
    FID against COCO's JPEGs.
-13. summary: the run's wall time, a JSON line of the kernels
+13. the last modules: ``python -m cfgpp_tpu_torch.cli.text_to_img
+   --profile_dir`` (``main``) on sd15 at 512^2, ``ddim_cfg++`` lambda=0.6,
+   50 NFE: 1601 launches, and the Chrome trace it writes holds one device
+   event of the flash kernel per launch; ``python -m
+   cfgpp_tpu_torch.cli.parity_check --dump`` for t2i, inversion and edit on
+   dumps of exactly the ``DUMP_SCHEMA`` keys, written by the port's engine
+   (sd15, 512^2, bf16, 50 NFE) over a random sd15 bundle saved as an
+   HF-layout directory (``save_bundle``) that the CLI loads with
+   ``from_pretrained``: each PASS at the CLI's default tolerance, its worst
+   MAE printed, its launches exact; ``parity_check --quant_drift`` at its
+   default command (sdxl 1024^2, ``dpm++_2m_cfgpp``, 25 NFE, ``all``) and
+   with ``--quant_mode dense``: WITHIN-INT8-BUDGET, exit code 0, the worst
+   rel-MAE beside phase 9's, the launches exactly an exact and a quantized
+   request's; ``python -m cfgpp_tpu_torch.tools.profile_bench``: its
+   segment times, modeled total and host time per solver step.
+14. summary: the run's wall time, a JSON line of the kernels
    (``launches_by_path`` with the sd21_v, sdxl, sdxl_lightning and MS-COCO
    runs; ``by_model``: each model's per-request sums, ``sdxl_lightning``
    from the sdxl rows at the Lightning calls, ``sdxl_mscoco_b16`` per
    batch of 8 images), then the result line ``{"ok": true, "device":
    {...}}``.
+
+Before its summary, and on every way out, it stops the processes it
+started that would outlive it (phase 12's JPEG forkserver and
+multiprocessing's resource tracker, which otherwise exit only some time
+after this process has) and ends any other process still below it.
 
 Without a CUDA device, or outside the repository, it prints no result and
 exits non-zero.
@@ -184,8 +209,12 @@ exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -304,7 +333,7 @@ INT8_LAUNCHES_PER_REQUEST = {
     "flash_attention_qkv_packed": 16 * NFE,
     "flash_attention_hd": 16 * NFE + 1,
 }
-QUANT_DRIFT_BUDGET = 0.15     # cfgpp_tpu/cli/parity_check.py --quant_budget
+QUANT_DRIFT_BUDGET = 0.15     # parity_check --quant_budget's default
 # The int8-all slice, per request: the int8 slice's launches, plus per UNet
 # call 14 1x1 conv_shortcut int8_matmuls (down blocks 1-2: one each; every
 # up resnet), the 4 3x3 convs that int8_conv3x3_supported admits at 512^2
@@ -742,6 +771,51 @@ def card_name_and_power() -> str:
                           "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def descendants(root: int) -> list:
+    """The pids of every live process below ``root``, read from /proc."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                stat = Path(f"/proc/{entry}/stat").read_text()
+            except OSError:             # it ended while the list was read
+                continue
+            parent[int(entry)] = int(stat.rsplit(")", 1)[1].split()[1])
+    found, level = [], {root}
+    while level:
+        level = {pid for pid, ppid in parent.items() if ppid in level}
+        found += sorted(level)
+    return found
+
+
+def stop_child_processes() -> list:
+    """Stops the processes this run started that would outlive it and
+    returns what it had to end beyond them.  A JPEG `AsyncImageReader`
+    (phase 12) leaves multiprocessing's forkserver and resource tracker
+    running after its pool has shut down; each exits only once it reads
+    the end of its pipe from this process, some time after this process
+    has gone.  Both are stopped and waited for here (the semaphores of the
+    pools are released first, or releasing them at exit would start the
+    tracker again); any other process still below this one is killed."""
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    left = []
+    for pid in descendants(os.getpid()):
+        try:
+            left.append(Path(f"/proc/{pid}/cmdline").read_bytes()
+                        .replace(b"\0", b" ").decode(errors="replace")[:120])
+            os.kill(pid, signal.SIGKILL)
+        except OSError:         # it ended on its own
+            continue
+    for _ in left:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(-1, 0)
+    return left
 
 
 # Device-side spin before each timed run (about 25 ms at the H100's clocks):
@@ -1458,6 +1532,17 @@ def phase_f32(fa, tk, tc, card: str) -> dict:
               f" {F32_LAUNCHES[what]}")
         check(err <= F32_MODEL_REL_L2_TOL, f"f32 {what}: kernel path disagrees")
         launches += n
+        # the same call under the CLIs' default, cuDNN TF32 on (a
+        # measurement: the bound above holds the TF32-off path)
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.inference_mode():
+            got_tf32 = run()
+        torch.backends.cudnn.allow_tf32 = False
+        err = rel_l2(got_tf32, want)
+        print(f"  f32 {what} with cuDNN TF32 on (the CLIs' default): kernel"
+              f" vs plain attention (TF32 off) rel_l2 {err:.3e},"
+              f" {'inside' if err <= F32_MODEL_REL_L2_TOL else 'outside'}"
+              f" the {F32_MODEL_REL_L2_TOL} bound [{card}]", flush=True)
     out = {"flash_attention_hd_f32": launches,
            "flash_attention_qkv_packed_f32": fa.packed_launches}
 
@@ -1633,20 +1718,22 @@ def phase_slice_requests(engine, fa, tk, tc, card: str, label: str,
 
 
 def quant_drift(traj_e, traj_q, label: str) -> float:
-    """``cfgpp_tpu/cli/parity_check.py:run_quant_drift``: per-step MAE of the
-    int8 trajectory against the exact one from the same zT (the same prompt
-    and seed), each normalized by the exact step's mean magnitude; the worst
+    """The quant-drift gate of ``python -m cfgpp_tpu_torch.cli.parity_check
+    --quant_drift`` (`parity_check.drift_summary`, the JAX CLI's rule) on
+    the trajectories a phase already has: per-step MAE of the int8
+    trajectory against the exact one from the same zT (the same prompt and
+    seed), each normalized by the exact step's mean magnitude; the worst
     must stay under 0.15."""
-    (z0_e, zt_e), (z0_q, zt_q) = traj_e, traj_q
-    worst, worst_step = 0.0, -1
-    for i in range(z0_e.shape[0]):
-        for q, e in ((z0_q[i], z0_e[i]), (zt_q[i], zt_e[i])):
-            rel = ((q - e).abs().mean() / e.abs().mean().clamp_min(1e-6)).item()
-            if rel > worst:
-                worst, worst_step = rel, i
+    from cfgpp_tpu_torch.cli.parity_check import drift_summary
+
+    out = drift_summary(traj_e, traj_q, QUANT_DRIFT_BUDGET)
+    worst = out["worst_rel_mae"]
+    worst_step = max(out["per_step"],
+                     key=lambda r: max(r["rel_z0t"], r["rel_zt"]))["step"]
     print(f"  {label} quant drift: worst per-step rel-MAE {worst:.4f} at step"
           f" {worst_step} (budget {QUANT_DRIFT_BUDGET})", flush=True)
-    check(worst < QUANT_DRIFT_BUDGET, f"{label}: quant drift {worst} over budget")
+    check(out["verdict"] == "WITHIN-INT8-BUDGET",
+          f"{label}: quant drift {worst} over budget")
     return worst
 
 
@@ -2859,6 +2946,184 @@ def phase_metrics(fa, tk, tc, card: str, images: Path, work: Path) -> dict:
     return rec
 
 
+# Phase 13: the last modules on the card.  The ``--dump`` requests run the
+# SD-1.5 slice's command (ddim_cfg++ family, lambda=0.6, 50 NFE, 512^2,
+# bf16); an inversion or edit dump injects its source latent, so its VAE
+# encode does not run: 100 UNet calls and the decode.
+DUMP_SOLVERS = {"t2i": "ddim_cfg++", "inversion": "ddim_inversion_cfg++",
+                "edit": "ddim_edit_cfg++"}
+DUMP_LAUNCHES = {"t2i": LAUNCHES_PER_REQUEST,
+                 "inversion": 2 * UNET_SITES_PER_CALL * NFE + 1,
+                 "edit": 2 * UNET_SITES_PER_CALL * NFE + 1}
+FLASH_KERNEL = "flash_fwd"      # the bf16 flash kernel's name in csrc/
+
+
+def captured(fn, *args):
+    """(what ``fn(*args)`` returns, the lines it printed); what it printed
+    is not echoed (parity_check's per-step rows are long)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue().strip().splitlines()
+
+
+def phase_last_modules(fa, tk, tc, card: str, work: Path,
+                       drift: dict) -> None:
+    """The modules of the port's last slice through their entry points:
+    ``text_to_img --profile_dir`` (the trace holds the flash kernel's device
+    events, one per launch), ``parity_check --dump`` of the three kinds on
+    dumps the port's engine writes (each must PASS at the CLI's tolerance),
+    ``parity_check --quant_drift`` at its default command and with
+    ``--quant_mode dense`` (each WITHIN-INT8-BUDGET, its launches exactly an
+    exact and a quantized request's) and ``tools/profile_bench.py``.
+    Every count is set to 0 just before each run."""
+    from cfgpp_tpu_torch.cli import parity_check, text_to_img
+    from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
+    from cfgpp_tpu_torch.tools import profile_bench
+    from cfgpp_tpu_torch.utils.img import to_np
+    from cfgpp_tpu_torch.weights.checkpoint import save_bundle
+
+    work.mkdir(parents=True, exist_ok=True)
+    reads = counters(fa, tk, tc)
+
+    def reset():
+        for mod in (fa, tk, tc):
+            mod.reset_launches()
+
+    def launches(expected: dict) -> dict:
+        n = {name: read() for name, read in reads.items()}
+        want = {name: expected.get(name, 0) for name in reads}
+        return n, want
+
+    # 1. text_to_img --profile_dir
+    trace_dir = work / "trace"
+    reset()
+    t0 = time.perf_counter()
+    text_to_img.main([
+        "--model", "sd15", "--method", "ddim_cfg++", "--cfg_guidance",
+        str(GUIDANCE), "--NFE", str(NFE), "--device", "cuda", "--prompt",
+        PROMPTS[0], "--workdir", str(work / "t2i_profile"), "--profile_dir",
+        str(trace_dir)])
+    seconds = time.perf_counter() - t0
+    n, want = launches({"flash_attention_hd": LAUNCHES_PER_REQUEST})
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"--profile_dir: trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if FLASH_KERNEL in e.get("name", "")]
+    flash_ms = sum(e.get("dur", 0) for e in flash) / 1000.0
+    print(f"  text_to_img --profile_dir: {seconds:.2f} s with the trace,"
+          f" launches {n}; {files[0].name} {files[0].stat().st_size / 1e6:.1f}"
+          f" MB, {len(events)} events, {len(kernels)} device kernels,"
+          f" {len(flash)} of them {FLASH_KERNEL} ({flash_ms:.2f} ms)"
+          f" [{card}]", flush=True)
+    check(n == want, f"--profile_dir request: launches {n}, expected {want}")
+    check(len(flash) == n["flash_attention_hd"],
+          f"--profile_dir: {len(flash)} {FLASH_KERNEL} device events for"
+          f" {n['flash_attention_hd']} launches")
+    check((work / "t2i_profile" / "result" / "generated.png").is_file(),
+          "--profile_dir: no generated.png")
+
+    # 2. parity_check --dump, the three kinds, on the port's own dumps
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random_init("sd15", seed=0, dtype=torch.bfloat16,
+                                     device="cuda")
+    ckpt = work / "sd15_ckpt"
+    nbytes = save_bundle(bundle, ckpt)
+    print(f"  random sd15 bundle written as an HF-layout directory"
+          f" ({nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    rng = np.random.default_rng(SEED)
+    s = RESOLUTION // bundle.vae_scale_factor
+    for kind, solver in DUMP_SOLVERS.items():
+        engine = DiffusionEngine(bundle, solver, nfe=NFE)
+        lat = rng.standard_normal((1, s, s, 4), dtype=np.float32)
+        prompts = ["", PROMPTS[1], PROMPTS[0]] if kind == "edit" \
+            else ["", PROMPTS[0]]
+        kw = ({"init_latent_override": lat} if kind == "t2i" else
+              {"src_latent_override": lat,
+               "src_img": np.zeros((1, RESOLUTION, RESOLUTION, 3), np.float32)})
+        _, (z0s, zts) = engine.sample(prompts, cfg_guidance=GUIDANCE,
+                                      resolution=RESOLUTION,
+                                      return_trajectory=True, **kw)
+        dump = {"zT": lat, "z0t": to_np(z0s), "zt": to_np(zts),
+                "prompt": prompts[-1], "null_prompt": "",
+                "cfg_guidance": GUIDANCE, "nfe": NFE, "method": solver,
+                "model": "sd15", "kind": kind, "seed": SEED}
+        if kind != "t2i":
+            dump["src_latent"] = lat
+        if kind == "edit":
+            dump["src_prompt"] = prompts[1]
+        check(set(dump) == set(parity_check.DUMP_SCHEMA[kind]),
+              f"{kind} dump: keys {sorted(dump)}")
+        path = work / f"{kind}.npz"
+        np.savez(path, **dump)
+        del engine
+        reset()
+        t0 = time.perf_counter()
+        rc, lines = captured(parity_check.main,
+                             ["--dump", str(path), "--ckpt_dir", str(ckpt)])
+        out = json.loads(lines[-1])
+        seconds = time.perf_counter() - t0
+        n, want = launches({"flash_attention_hd": DUMP_LAUNCHES[kind]})
+        print(f"  parity_check --dump {kind} ({solver}, {NFE} NFE,"
+              f" {RESOLUTION}^2): {out['verdict']}, worst MAE"
+              f" {out['worst_mae']:.3e} over {len(out['per_step'])} steps"
+              f" (tolerance {out['tolerance']}), rc {rc}, {seconds:.2f} s,"
+              f" launches {n} [{card}]", flush=True)
+        check(rc == 0 and out["verdict"] == "PASS",
+              f"parity_check --dump {kind}: rc {rc}, {out['verdict']}")
+        check(len(out["per_step"]) == len(dump["z0t"]),
+              f"--dump {kind}: {len(out['per_step'])} steps compared")
+        check(n == want, f"--dump {kind}: launches {n}, expected {want}")
+    del bundle
+    torch.cuda.empty_cache()
+
+    # 3. parity_check --quant_drift, the default command and dense
+    for mode, extra in (("all", []), ("dense", ["--quant_mode", "dense"])):
+        reset()
+        t0 = time.perf_counter()
+        rc, lines = captured(parity_check.main, ["--quant_drift", *extra])
+        out = json.loads(lines[-1])
+        seconds = time.perf_counter() - t0
+        expected = {name: SDXL_LAUNCHES_PER_REQUEST["exact"].get(name, 0)
+                    + SDXL_LAUNCHES_PER_REQUEST[mode].get(name, 0)
+                    for name in reads}
+        n, want = launches(expected)
+        print(f"  parity_check --quant_drift{' ' if extra else ''}"
+              f"{' '.join(extra)} ({out['model']}, {out['method']},"
+              f" {out['nfe']} NFE): {out['verdict']}, worst rel-MAE"
+              f" {out['worst_rel_mae']:.4f} (phase 9's sdxl {mode}:"
+              f" {drift[f'sdxl {mode}']:.4f}; budget {out['rel_budget']}),"
+              f" rc {rc}, {seconds:.1f} s, launches {n} [{card}]", flush=True)
+        check(rc == 0 and out["verdict"] == "WITHIN-INT8-BUDGET"
+              and out["mode"] == f"quant_drift[{mode}]"
+              and (out["model"], out["method"], out["nfe"])
+              == ("sdxl", SDXL_SOLVER, SDXL_NFE),
+              f"parity_check --quant_drift {mode}: rc {rc}, {out['verdict']}")
+        check(n == want, f"--quant_drift {mode}: launches {n}, expected"
+              f" {want}")
+        torch.cuda.empty_cache()
+
+    # 4. tools/profile_bench.py
+    t0 = time.perf_counter()
+    rec, lines = captured(profile_bench.main, [])
+    for line in lines[:-1]:       # its JSON record is summed up below
+        print(f"  profile_bench: {line}" if line else "", flush=True)
+    times = [rec["unet_call_s"], rec["host_enqueue_median_s"],
+             rec["step_wall_median_s"], rec["modeled_total_s"],
+             rec["request_device_s"]]
+    print(f"  profile_bench: {rec['steps']} solver steps, host enqueue"
+          f" median {rec['host_enqueue_median_s'] * 1000:.2f} ms, step wall"
+          f" median {rec['step_wall_median_s'] * 1000:.2f} ms, one UNet call"
+          f" {rec['unet_call_s'] * 1000:.2f} ms, in"
+          f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    check(rec["steps"] == SDXL_CALLS and rec["card"] == card
+          and all(np.isfinite(x) and x > 0 for x in times),
+          f"profile_bench: {rec['steps']} steps, times {times}")
+    torch.cuda.empty_cache()
+
+
 # name: (source, the TPU kernel it replaces, the path whose run counts its
 # launches).
 KERNEL_SOURCES = {
@@ -3032,6 +3297,21 @@ def main() -> None:
               " fixtures bit for bit, card against CPU features in"
               f" {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+        t0 = time.perf_counter()
+        phase_last_modules(fa, tk, tc, card, work / "last", drift)
+        print("phase 13 ok: the last modules on the card: text_to_img"
+              " --profile_dir (a trace with the flash kernel's device events),"
+              " parity_check --dump (t2i, inversion, edit: PASS) and"
+              " --quant_drift (all, dense: WITHIN-INT8-BUDGET),"
+              f" tools/profile_bench.py in {time.perf_counter() - t0:.1f} s"
+              f" [{card}]", flush=True)
+
+    killed = stop_child_processes()
+    print(f"  child processes stopped; killed beyond them: {killed or 'none'};"
+          f" left below this process: {descendants(os.getpid()) or 'none'}",
+          flush=True)
+    check(not descendants(os.getpid()), "processes left below this one")
+
     kernels = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
         summary = table.summary(name, {LIGHTNING_MODEL: (
@@ -3069,4 +3349,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_child_processes()

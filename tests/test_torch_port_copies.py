@@ -1,13 +1,14 @@
 """The port's copies of the JAX package's numpy-only modules, held equal.
 
 ``cfgpp_tpu_torch/configs.py``, ``schedules/ddim.py``,
-``schedules/karras.py``, ``weights/tokenizer.py``, ``metrics/fid.py`` and
-``metrics/functional.py`` are copies of their ``cfgpp_tpu`` namesakes, so
-that the port imports nothing of the JAX package.  Each test compares the
-copy with the original on the same inputs: every bundle config field by
-field, the DDIM tables array by array, the Karras helpers' outputs, token
-ids from the hash fallback and from a small BPE vocabulary, and the FID
-statistics and paired metrics value by value.  The last test imports every
+``schedules/karras.py``, ``weights/tokenizer.py``, ``metrics/fid.py``,
+``metrics/functional.py`` and ``utils/flops.py`` are copies of their
+``cfgpp_tpu`` namesakes, so that the port imports nothing of the JAX
+package.  Each test compares the copy with the original on the same
+inputs: every bundle config field by field, the DDIM tables array by array,
+the Karras helpers' outputs, token ids from the hash fallback and from a
+small BPE vocabulary, the FID statistics and paired metrics value by value,
+and the FLOP counts of every preset.  The last test imports every
 module of the port in a fresh interpreter and finds neither the JAX
 package nor jax, jaxlib or flax loaded, nor PIL, torchvision or
 safetensors (the card's machine has none of them).
@@ -27,10 +28,12 @@ from cfgpp_tpu.metrics import fid as jax_fid
 from cfgpp_tpu.metrics import functional as jax_functional
 from cfgpp_tpu.schedules import ddim as jax_ddim
 from cfgpp_tpu.schedules import karras as jax_karras
+from cfgpp_tpu.utils import flops as jax_flops
 from cfgpp_tpu.weights import tokenizer as jax_tokenizer
 from cfgpp_tpu_torch import configs
 from cfgpp_tpu_torch.metrics import fid, functional
 from cfgpp_tpu_torch.schedules import ddim, karras
+from cfgpp_tpu_torch.utils import flops
 from cfgpp_tpu_torch.weights import tokenizer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -189,6 +192,35 @@ def test_metric_names_equal(mod):
     assert public(port) == public(orig)
 
 
+@pytest.mark.parametrize("dual_branch", [True, False])
+@pytest.mark.parametrize("images", [1, 2])
+@pytest.mark.parametrize("name", sorted(jax_configs._PRESETS))
+def test_flops_equal(name, images, dual_branch):
+    """``pipeline_flops`` at the preset's default resolution and 50 UNet
+    calls, and its two parts, float for float on the port's configs."""
+    cfg, jcfg = configs.get_bundle_config(name), jax_configs.get_bundle_config(name)
+    res = cfg.default_resolution
+    got = flops.pipeline_flops(cfg, res, 50, images=images,
+                               dual_branch=dual_branch)
+    want = jax_flops.pipeline_flops(jcfg, res, 50, images=images,
+                                    dual_branch=dual_branch)
+    assert got == want and got["total"] > 0
+    hw = res // cfg.vae.scale_factor
+    rows = images * (2 if dual_branch else 1)
+    assert flops.unet_step_flops(cfg.unet, rows, hw) == \
+        jax_flops.unet_step_flops(jcfg.unet, rows, hw)
+    assert flops.vae_decode_flops(cfg.vae, hw, images) == \
+        jax_flops.vae_decode_flops(jcfg.vae, hw, images)
+
+
+def test_flops_names_equal():
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
+                              and callable(getattr(m, n))
+                              and getattr(m, n).__module__ == m.__name__)
+    assert public(flops) == public(jax_flops) == [
+        "pipeline_flops", "unet_step_flops", "vae_decode_flops"]
+
+
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     interpreter."""
@@ -218,7 +250,12 @@ def test_port_imports_nothing_of_jax():
         "            'cfgpp_tpu_torch.models.clip_vision',\n"
         "            'cfgpp_tpu_torch.utils.jpeg',\n"
         "            'cfgpp_tpu_torch.cli.calculate_metrics',\n"
-        "            'cfgpp_tpu_torch.tools.metric_synth'):\n"
+        "            'cfgpp_tpu_torch.tools.metric_synth',\n"
+        "            'cfgpp_tpu_torch.utils.profiling',\n"
+        "            'cfgpp_tpu_torch.utils.flops',\n"
+        "            'cfgpp_tpu_torch.cli.parity_check',\n"
+        "            'cfgpp_tpu_torch.solvers.__main__',\n"
+        "            'cfgpp_tpu_torch.tools.profile_bench'):\n"
         "    assert new in names, new\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('cfgpp_tpu', 'jax', 'jaxlib', 'flax', 'PIL',\n"
