@@ -38,6 +38,7 @@ from cfgpp_tpu_torch.solvers.sampler import (init_latent,
                                              init_latent_per_sample,
                                              run_inversion, run_solver,
                                              run_solver_unrolled)
+from cfgpp_tpu_torch.utils import profiling
 
 
 def _stream_seed(seed: int, *tags: int) -> int:
@@ -106,12 +107,16 @@ class DiffusionEngine:
 
     # ------------------------------------------------------------------ host
     def tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
-        ids = self.bundle.tokenizer(list(prompts))
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        with profiling.span("tokenize"):
+            ids = self.bundle.tokenizer(list(prompts))
+            return torch.as_tensor(np.asarray(ids, np.int64),
+                                   device=self.device)
 
     def tokenize_2(self, prompts: Sequence[str]) -> torch.Tensor:
-        ids = self.bundle.tokenizer_2(list(prompts))
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        with profiling.span("tokenize"):
+            ids = self.bundle.tokenizer_2(list(prompts))
+            return torch.as_tensor(np.asarray(ids, np.int64),
+                                   device=self.device)
 
     def default_resolution(self) -> int:
         return self.bundle.config.default_resolution
@@ -157,12 +162,13 @@ class DiffusionEngine:
         """(context, pooled) of a batch of prompts: pooled is None for the
         SD family; SDXL's encoder 2 reads ``prompts_2`` (default: the same
         prompts)."""
-        if self.bundle.family != "sdxl":
-            return self._text_embed_sd(self.tokenize(prompts)), None
-        return self._text_embed_sdxl(
-            self.tokenize(prompts),
-            self.tokenize_2(prompts if prompts_2 is None else prompts_2),
-            clip_skip)
+        with profiling.span("text"):
+            if self.bundle.family != "sdxl":
+                return self._text_embed_sd(self.tokenize(prompts)), None
+            return self._text_embed_sdxl(
+                self.tokenize(prompts),
+                self.tokenize_2(prompts if prompts_2 is None else prompts_2),
+                clip_skip)
 
     # ------------------------------------------------------------ eps closure
     def _make_eps_fn(self, uc: torch.Tensor, c: torch.Tensor, w: float,
@@ -183,7 +189,8 @@ class DiffusionEngine:
             self.spec.cfgpp, float(w))
 
         def apply(z, t, ctx, added, ckv):
-            out = unet(z, t, ctx, *(added or ()), cross_kv=ckv)
+            with profiling.span("unet", len(z)):
+                out = unet(z, t, ctx, *(added or ()), cross_kv=ckv)
             if self._abar is None:
                 return out
             a = self._abar[torch.as_tensor(t, device=z.device).long().clamp(
@@ -197,7 +204,8 @@ class DiffusionEngine:
             if added_uc is not None:
                 added = tuple(torch.cat([a, b], dim=0)
                               for a, b in zip(added_uc, added_c))
-            ckv = precompute_cross_kv(unet, ctx)
+            with profiling.span("cross_kv"):
+                ckv = precompute_cross_kv(unet, ctx)
 
             def eps_fn(z, t):
                 b = z.shape[0]
@@ -207,7 +215,8 @@ class DiffusionEngine:
 
         ctx = uc if needs_uc else c
         added = added_uc if needs_uc else added_c
-        ckv = precompute_cross_kv(unet, ctx)
+        with profiling.span("cross_kv"):
+            ckv = precompute_cross_kv(unet, ctx)
 
         def eps_fn(z, t):
             out = apply(z, t, ctx, added, ckv)
@@ -219,7 +228,10 @@ class DiffusionEngine:
         """Per-image decode (a whole-batch decode multiplies the VAE's
         activation memory by the batch) -> float32 images in [0, 1]."""
         scale = self.bundle.config.vae.scaling_factor
-        imgs = [self.bundle.vae.decode(zi[None] / scale) for zi in z]
+        imgs = []
+        for j, zi in enumerate(z):
+            with profiling.span("decode", j):
+                imgs.append(self.bundle.vae.decode(zi[None] / scale))
         return (torch.cat(imgs).float() / 2.0 + 0.5).clamp(0.0, 1.0)
 
     def _encode(self, img: torch.Tensor, generator) -> torch.Tensor:
@@ -313,18 +325,21 @@ class DiffusionEngine:
             slots_2 = self._slots(
                 prompt_2[1:3] if self.spec.edit else prompt_2[1:2], batch,
                 "prompt_2 lists must share the prompt batch size")
-        img, traj = self._run(
-            nulls=(prompt[0], null_2), slots=slots, slots_2=slots_2,
-            batch=batch, cfg_guidance=cfg_guidance, seed=seed,
-            sample_indices=None, resolution=resolution, src_img=src_img,
-            init_latent_override=init_latent_override,
-            noise_override=noise_override,
-            src_latent_override=src_latent_override, latent_init=latent_init,
-            original_size=original_size,
-            crops_coords_top_left=crops_coords_top_left,
-            target_size=target_size, clip_skip=clip_skip,
-            callback_fn=callback_fn, unrolled=unrolled,
-            return_trajectory=return_trajectory)
+        with profiling.unit("request", solver=self.solver_name, nfe=self.nfe,
+                            batch=batch, resolution=resolution
+                            or self.default_resolution()):
+            img, traj = self._run(
+                nulls=(prompt[0], null_2), slots=slots, slots_2=slots_2,
+                batch=batch, cfg_guidance=cfg_guidance, seed=seed,
+                sample_indices=None, resolution=resolution, src_img=src_img,
+                init_latent_override=init_latent_override,
+                noise_override=noise_override,
+                src_latent_override=src_latent_override,
+                latent_init=latent_init, original_size=original_size,
+                crops_coords_top_left=crops_coords_top_left,
+                target_size=target_size, clip_skip=clip_skip,
+                callback_fn=callback_fn, unrolled=unrolled,
+                return_trajectory=return_trajectory)
         return (img, traj) if return_trajectory else img
 
     @torch.inference_mode()
@@ -388,20 +403,24 @@ class DiffusionEngine:
             slots_2 = self._slots([src_prompts, ps2] if self.spec.edit
                                   else [ps2], batch,
                                   "prompts_2 must share the prompt batch size")
-        img, _ = self._run(
-            nulls=(null_prompt, null_2), slots=slots, slots_2=slots_2,
-            batch=batch, cfg_guidance=cfg_guidance, seed=seed,
-            sample_indices=indices, resolution=resolution, src_img=src_imgs,
-            init_latent_override=init_latent_override,
-            noise_override=noise_override,
-            src_latent_override=src_latent_override, latent_init=None,
-            original_size=original_size,
-            crops_coords_top_left=crops_coords_top_left,
-            target_size=target_size, clip_skip=None, callback_fn=callback_fn,
-            unrolled=False, return_trajectory=False)
-        if to_uint8:
-            img = self._to_uint8(img)
-        return img.cpu().numpy() if as_numpy else img
+        with profiling.unit("batch", solver=self.solver_name, nfe=self.nfe,
+                            batch=batch, resolution=resolution
+                            or self.default_resolution()):
+            img, _ = self._run(
+                nulls=(null_prompt, null_2), slots=slots, slots_2=slots_2,
+                batch=batch, cfg_guidance=cfg_guidance, seed=seed,
+                sample_indices=indices, resolution=resolution,
+                src_img=src_imgs, init_latent_override=init_latent_override,
+                noise_override=noise_override,
+                src_latent_override=src_latent_override, latent_init=None,
+                original_size=original_size,
+                crops_coords_top_left=crops_coords_top_left,
+                target_size=target_size, clip_skip=None,
+                callback_fn=callback_fn, unrolled=False,
+                return_trajectory=False)
+            if to_uint8:
+                img = self._to_uint8(img)
+            return img.cpu().numpy() if as_numpy else img
 
     def _run(self, *, nulls: Tuple[str, str], slots: List[List[str]],
              slots_2: List[List[str]], batch: int, cfg_guidance: float,
@@ -491,10 +510,12 @@ class DiffusionEngine:
         elif init_latent_override is not None:
             zT = self._as_f32(init_latent_override)
         else:
-            gens = self._generators(seed, sample_indices, 0)
-            shape = self.latent_shape(batch, res)
-            zT = (init_latent(self.plan, gens, shape) if sample_indices is None
-                  else init_latent_per_sample(self.plan, gens, shape))
+            with profiling.span("init_latent"):
+                gens = self._generators(seed, sample_indices, 0)
+                shape = self.latent_shape(batch, res)
+                zT = (init_latent(self.plan, gens, shape)
+                      if sample_indices is None
+                      else init_latent_per_sample(self.plan, gens, shape))
 
         noise_fn = self._noise_fn(seed, zT, noise_override, sample_indices)
         traj = None

@@ -24,6 +24,7 @@ import torch
 from cfgpp_tpu_torch.solvers import steps
 from cfgpp_tpu_torch.solvers.plans import SolverPlan
 from cfgpp_tpu_torch.solvers.registry import SolverSpec
+from cfgpp_tpu_torch.utils import profiling
 
 Trajectory = Tuple[torch.Tensor, torch.Tensor]
 NoiseFn = Callable[[int, torch.Tensor], torch.Tensor]
@@ -107,6 +108,15 @@ def _check_guidance(spec: SolverSpec, plan: SolverPlan, cfg_guidance,
         raise ValueError(f"solver {spec.name} is ancestral and needs a noise_fn")
 
 
+def _tail(spec: SolverSpec, plan: SolverPlan, eps_fn, w, x: torch.Tensor
+          ) -> torch.Tensor:
+    """DPM++ 2S's eulerized last step, after the loop (a `step` span with
+    index ``plan.n_steps``)."""
+    with profiling.span("step", plan.n_steps):
+        return steps.dpmpp_2s_tail_step(eps_fn, w, plan.tail_coeffs, x,
+                                        cfgpp=spec.cfgpp)[0]
+
+
 def run_solver(spec: SolverSpec, plan: SolverPlan, eps_fn,
                zT: torch.Tensor, cfg_guidance: float,
                noise_fn: Optional[NoiseFn] = None,
@@ -124,15 +134,16 @@ def run_solver(spec: SolverSpec, plan: SolverPlan, eps_fn,
 
     carry, z0s, zts = carry0(zT), [], []
     for i in range(plan.n_steps):
-        carry, (z0t, zt) = body(carry, i, {k: v[i] for k, v in coeffs.items()})
+        with profiling.span("step", i):
+            carry, (z0t, zt) = body(carry, i,
+                                    {k: v[i] for k, v in coeffs.items()})
         if return_trajectory:
             z0s.append(z0t)
             zts.append(zt)
     x_final = extract(carry)
 
     if spec.kind == "dpm2s":
-        x_final, _ = steps.dpmpp_2s_tail_step(eps_fn, w, plan.tail_coeffs,
-                                              x_final, cfgpp=spec.cfgpp)
+        x_final = _tail(spec, plan, eps_fn, w, x_final)
 
     final = z0t if plan.final == "z0" else x_final
     if return_trajectory:
@@ -157,7 +168,9 @@ def run_solver_unrolled(spec: SolverSpec, plan: SolverPlan, eps_fn,
 
     carry, z0t = carry0(zT), zT
     for i in range(plan.n_steps):
-        carry, (z0t, zt) = body(carry, i, {k: v[i] for k, v in coeffs.items()})
+        with profiling.span("step", i):
+            carry, (z0t, zt) = body(carry, i,
+                                    {k: v[i] for k, v in coeffs.items()})
         if callback is not None:
             kw = callback(i, int(plan.coeffs["t"][i]),
                           {"z0t": z0t, "zt": zt, "decode": decode_fn})
@@ -166,8 +179,7 @@ def run_solver_unrolled(spec: SolverSpec, plan: SolverPlan, eps_fn,
     x_final = extract(carry)
 
     if spec.kind == "dpm2s":
-        x_final, _ = steps.dpmpp_2s_tail_step(eps_fn, w, plan.tail_coeffs,
-                                              x_final, cfgpp=spec.cfgpp)
+        x_final = _tail(spec, plan, eps_fn, w, x_final)
     return z0t if plan.final == "z0" else x_final
 
 
@@ -180,7 +192,8 @@ def run_inversion(spec: SolverSpec, plan: SolverPlan, eps_fn,
     w = torch.tensor(cfg_guidance, dtype=torch.float32, device=z0.device)
     zt = z0
     for i in range(plan.n_steps):
-        zt, _ = steps.ddim_inversion_step(
-            eps_fn, w, {k: v[i] for k, v in coeffs.items()}, zt,
-            cfgpp=spec.cfgpp)
+        with profiling.span("step", i):
+            zt, _ = steps.ddim_inversion_step(
+                eps_fn, w, {k: v[i] for k, v in coeffs.items()}, zt,
+                cfgpp=spec.cfgpp)
     return zt

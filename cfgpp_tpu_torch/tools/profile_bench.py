@@ -17,23 +17,24 @@ engine's decode policy (f32 parameters, bf16 compute) and with bf16
 parameters too.  Then the JAX script's "modeled total" lines: text + UNet
 calls x one call + decode.
 
-Host time per solver step: one whole request through ``sample(callback_fn=,
-unrolled=True)``, the engine's own hook.  The callback runs after each
-step's work is enqueued: it reads the clock (the step's enqueue ends), then
-synchronizes and reads it again (the step's work ends).  Per step, the
-enqueue is the time from the previous step's end to this step's callback
-(the host queues the step without waiting for the device, so this is host
-time), and the wall time is the time between two ends.  Both are set
-beside the one-call UNet time; the first step (text encode and zT before
-it) is left out.  A step that launches more kernels than the device's
-launch queue holds waits in its enqueue for the device whenever the device
-is the slower of the two, so the enqueue time is the host's own only when
-the device keeps up: one more request under ``torch.profiler`` (no
-callback) gives the device's busy seconds (the sum of its kernels',
-copies' and memsets' durations), and their share a UNet call beside it.
-The busy share divides them by the wall time of a request timed without
-the profiler, whose own host cost would lengthen the wall.  One JSON line
-closes the output.
+Host time per solver step: the span recorder's ``step`` spans
+(``utils/profiling.py``) of one whole request, run as a user runs it, with
+no synchronisation.  Per step after the first, the enqueue is the step
+span's host time (the host queues the step's work; a step that launches
+more than the device's launch queue holds, or copies to the device, also
+waits in it whenever the device is the slower), its CPU time is the main
+thread's CPU time over the span (while the device keeps up, the enqueue
+less the CPU time is time the host waited; a full launch queue's wait is
+a spin in the CUDA library, CPU time too), and the wall time runs from
+the previous step's end to this one's.  They are set beside the one-call
+UNet time.
+One more request under ``torch.profiler`` gives the device's busy seconds
+(the sum of its kernels', copies' and memsets' durations), and their share
+a UNet call beside it, and, through `profiling.attribute`, the device
+operations each UNet call launches and the host's waits on the device in
+the request.  The busy share divides the busy seconds by the wall time of
+a request timed without the profiler, whose own host cost would lengthen
+the wall.  One JSON line closes the output.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import time
 
 import torch
 
+from cfgpp_tpu_torch.utils import profiling
 from cfgpp_tpu_torch.utils.profiling import block_until_ready
 
 PROMPT = "a benchmark prompt"
@@ -70,28 +72,26 @@ def timed(timer, name: str, fn):
 
 
 def host_per_step(engine, res: int) -> dict:
-    """Enqueue and wall seconds of each solver step of one request
-    (`sample(unrolled=True)` with a callback that synchronizes)."""
-    marks = []
-
-    def callback(step, t, kw):
-        enqueued = time.perf_counter()
-        block_until_ready(kw["zt"])
-        marks.append((enqueued, time.perf_counter()))
-        return kw
-
-    engine.sample(["", PROMPT], cfg_guidance=GUIDANCE, seed=42,
-                  resolution=res, callback_fn=callback, unrolled=True)
-    enqueue = [e - marks[i - 1][1] for i, (e, _) in enumerate(marks) if i]
-    wall = [d - marks[i - 1][1] for i, (_, d) in enumerate(marks) if i]
-    return {"steps": len(marks), "enqueue_s": enqueue, "wall_s": wall}
+    """Enqueue, CPU and wall seconds of each solver step of one
+    unsynchronised request after its first, from its ``step`` spans."""
+    with profiling.recording() as rec:
+        block_until_ready(engine.sample(["", PROMPT], cfg_guidance=GUIDANCE,
+                                        seed=42, resolution=res))
+    steps = sorted(rec.named("step"), key=lambda s: s.start_ns)
+    after = list(zip(steps, steps[1:]))
+    return {"steps": len(steps),
+            "enqueue_s": [(s.end_ns - s.start_ns) / 1e9 for _, s in after],
+            "cpu_s": [s.cpu_ns / 1e9 for _, s in after],
+            "wall_s": [(s.end_ns - p.end_ns) / 1e9 for p, s in after]}
 
 
 def device_busy(engine, res: int) -> dict:
     """Device seconds of one request (the durations of its device events
     summed, from ``torch.profiler``), the wall seconds of that profiled
     request, and of one request without the profiler: the busy share is the
-    device seconds over the unprofiled wall."""
+    device seconds over the unprofiled wall.  Also the device operations
+    launched a UNet call and the host's waits on the device in the
+    profiled request (`profiling.attribute` over its spans)."""
     from torch.profiler import ProfilerActivity, profile
 
     def request():
@@ -104,15 +104,21 @@ def device_busy(engine, res: int) -> dict:
     activities = [ProfilerActivity.CPU]
     if engine.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profiling.recording() as rec, profile(activities=activities) as prof:
         profiled_wall = request()
     # the profiler's raw events: building its Python event list for the
     # half a million events of an sdxl request takes tens of seconds
+    events = prof.profiler.kineto_results.events()
     cuda = torch.autograd.DeviceType.CUDA
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == cuda) / 1e9
+    busy = sum(e.duration_ns() for e in events if e.device_type() == cuda
+               and not e.is_user_annotation()) / 1e9
+    share = profiling.attribute(events, rec.spans)
+    unet = rec.named("unet")
+    waits = share.total(rec.spans)
     return {"request_wall_s": wall, "profiled_request_wall_s": profiled_wall,
-            "request_device_s": busy, "busy_share": busy / wall}
+            "request_device_s": busy, "busy_share": busy / wall,
+            "launches_per_unet_call": share.total(unet).launches / len(unet),
+            "host_waits": waits.waits, "host_wait_s": waits.wait_s}
 
 
 def main(argv=None) -> dict:
@@ -183,20 +189,23 @@ def main(argv=None) -> dict:
     wall = statistics.median(steps["wall_s"])
     busy = device_busy(engine, res)
     per_call = busy["request_device_s"] / n_calls
+    cpu = statistics.median(steps["cpu_s"])
     print(f"host per solver step ({steps['steps'] - 1} steps after the"
-          f" first): enqueue median {enq * 1000:.2f} ms (min"
+          f" first, no sync): enqueue median {enq * 1000:.2f} ms (min"
           f" {min(steps['enqueue_s']) * 1000:.2f}, max"
-          f" {max(steps['enqueue_s']) * 1000:.2f}), wall with a sync median"
-          f" {wall * 1000:.2f} ms; one UNet call {t_unet * 1000:.2f} ms:"
-          f" enqueue {enq / t_unet:.3f}x, wall {wall / t_unet:.3f}x of it"
-          f" [{name}]", flush=True)
+          f" {max(steps['enqueue_s']) * 1000:.2f}), CPU median"
+          f" {cpu * 1000:.2f} ms, wall median {wall * 1000:.2f} ms; one UNet"
+          f" call {t_unet * 1000:.2f} ms: enqueue {enq / t_unet:.3f}x, wall"
+          f" {wall / t_unet:.3f}x of it [{name}]", flush=True)
     print(f"request: {busy['request_wall_s'] * 1000:.2f} ms wall"
           f" ({busy['profiled_request_wall_s'] * 1000:.2f} ms under the"
           f" profiler), {busy['request_device_s'] * 1000:.2f} ms of device"
           f" events (busy {busy['busy_share']:.3f} of the unprofiled wall),"
           f" {per_call * 1000:.2f} ms a UNet call"
-          f" with the text encode and decode spread over the {n_calls}"
-          f" [{name}]", flush=True)
+          f" with the text encode and decode spread over the {n_calls};"
+          f" {busy['launches_per_unet_call']:.1f} device operations a UNet"
+          f" call, {busy['host_waits']} host waits on the device"
+          f" ({busy['host_wait_s'] * 1000:.2f} ms) [{name}]", flush=True)
     record = {"model": args.model, "solver": SOLVER, "nfe": NFE,
               "guidance": GUIDANCE, "resolution": res,
               "dtype": str(DTYPE)[6:],
@@ -204,7 +213,8 @@ def main(argv=None) -> dict:
               "unet_calls": n_calls, "modeled_total_s":
               t_text + n_calls * t_unet + t_vae,
               "modeled_total_bf16_vae_s": t_text + n_calls * t_unet + t_vae16,
-              "host_enqueue_median_s": enq, "step_wall_median_s": wall,
+              "host_enqueue_median_s": enq, "host_cpu_median_s": cpu,
+              "step_wall_median_s": wall,
               "unet_call_s": t_unet, "device_s_per_call": per_call,
               **busy, **steps}
     print(json.dumps(record), flush=True)

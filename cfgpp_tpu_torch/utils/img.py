@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from cfgpp_tpu_torch.utils import profiling
 from cfgpp_tpu_torch.utils.jpeg import decode_jpeg, jpeg_size
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -148,18 +149,26 @@ class AsyncPngWriter:
         self._closed = False
 
     def submit(self, path, img, ready=None) -> None:
-        path = Path(path)
-        pixels = img if ready is not None else _rgb_u8(img).copy()
-        self._pending.append(
-            (path, self._pool.submit(self._write, path, pixels, ready)))
+        with profiling.span("png.submit"):
+            path = Path(path)
+            pixels = img if ready is not None else _rgb_u8(img).copy()
+            unit = None
+            if profiling.ON:      # the writes not yet finished, and the
+                #                   unit whose pixels these are
+                profiling.gauge("png.pending", sum(
+                    not f.done() for _, f in self._pending))
+                unit = profiling.current_unit()
+            self._pending.append((path, self._pool.submit(
+                self._write, path, pixels, ready, unit)))
 
     @staticmethod
-    def _write(path: Path, pixels, ready) -> None:
-        if ready is not None:
-            ready.synchronize()
-        data = _png_bytes(_rgb_u8(pixels))
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_bytes(data)
+    def _write(path: Path, pixels, ready, unit) -> None:
+        with profiling.span("png.write", unit=unit):
+            if ready is not None:
+                ready.synchronize()
+            data = _png_bytes(_rgb_u8(pixels))
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_bytes(data)
 
     def wait(self) -> int:
         pending, self._pending = self._pending, []
