@@ -46,6 +46,7 @@ from cfgpp_tpu_torch.models.attention import (Attention, Conv2d, GroupNorm,
                                               LayerNorm, Linear)
 from cfgpp_tpu_torch.models.quant import (QuantConv, QuantLinear,
                                           groupnorm_silu_coeffs, ln_kwargs)
+from cfgpp_tpu_torch.models.unet_graph import GraphRunner
 
 CrossKV = Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]
 
@@ -326,6 +327,7 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = Conv2d(ch, cfg.out_channels, 3, padding=1)
         for name, tr in self.cross_attention_sites():
             tr.site = name
+        self.graphs = GraphRunner()
 
     def cross_attention_sites(self):
         """(site name, Transformer2DModel) in the JAX package's site naming."""
@@ -345,7 +347,20 @@ class UNet2DConditionModel(nn.Module):
         """``cross_kv``: {site: [(k, v) per layer]} from `precompute_cross_kv`;
         each cross-attention site then skips its to_k/to_v projections.
         SDXL: ``added_text_embeds`` [B, pooled dim] (encoder 2's projected
-        pooled output) and ``added_time_ids`` [B, 6]."""
+        pooled output) and ``added_time_ids`` [B, 6].  On a CUDA device with
+        autograd off the call is a CUDA graph's replay
+        (`cfgpp_tpu_torch.models.unet_graph`), else `_forward_eager`."""
+        return self.graphs(self._forward_eager, sample, timesteps,
+                           encoder_hidden_states, added_text_embeds,
+                           added_time_ids, cross_kv)
+
+    def _apply(self, fn, *args, **kwargs):
+        # moved or cast parameters are new memory: no graph reads the old
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _forward_eager(self, sample, timesteps, encoder_hidden_states,
+                       added_text_embeds, added_time_ids, cross_kv):
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         b = sample.shape[0]

@@ -7,7 +7,7 @@ Chrome trace file (``*.pt.trace.json``, for Perfetto, ``chrome://tracing``
 or TensorBoard's profiler plugin).  `StepTimer` times named sections on the
 host clock, with the JAX class's ``summary()`` keys and ``report()`` lines.
 
-The span recorder (`recording`, `span`, `unit`, `gauge`) times the
+The span recorder (`recording`, `span`, `unit`, `gauge`, `count`) times the
 program's own layers: each unit of work (a `sample` request, a
 `sample_batch` batch) gets a unit id, and every span inside it (text
 encode, each solver step and UNet call, each decode, the PNG writes on the
@@ -327,6 +327,13 @@ def gauge(name: str, value: float) -> None:
         return
     rec.readings.append(Reading(name, current_unit(),
                                 time.perf_counter_ns() + rec.offset_ns, value))
+
+
+def count(name: str) -> None:
+    """One event of counter ``name``: a reading of 1 (the UNet's graph
+    runner counts each call as ``unet.replay``, ``unet.capture`` or
+    ``unet.eager``)."""
+    gauge(name, 1.0)
 
 
 # ------------------------------------------------- spans on the device trace

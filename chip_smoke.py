@@ -2059,10 +2059,12 @@ def phase_sdxl(fa, tk, tc, card: str):
     at 1024^2 through ``DiffusionEngine.sample``, ``dpm++_2m_cfgpp`` at
     w=5, 25 NFE: one UNet call and one VAE decode against the plain
     attention, the first step against the plain attention, three exact
-    requests, one ``--quant dense`` and one ``--quant all`` request (each
-    with its UNet call against every kernel's plain version and its quant
-    drift against the first exact request), and one ``ddim_edit_cfg++``
-    request of a 1024^2 image; every count set to 0 just before each run.
+    requests, the UNet's CUDA graph against its eager body
+    (`phase_unet_graph`), one ``--quant dense`` and one ``--quant all``
+    request (each with its UNet call against every kernel's plain version
+    and its quant drift against the first exact request), and one
+    ``ddim_edit_cfg++`` request of a 1024^2 image; every count set to 0
+    just before each run.
     Returns (the launches of each run under "sdxl <form>", the quant drift
     of each int8 form, {form: s/image})."""
     import tempfile
@@ -2092,6 +2094,7 @@ def phase_sdxl(fa, tk, tc, card: str):
     launches, seconds, drift = {}, {}, {}
     launches["sdxl exact"], traj_e = phase_slice_requests(
         engine, fa, tk, tc, card, "sdxl exact", want["exact"], res, w)
+    phase_unet_graph(bundle, fa, tk, tc, card)
     for mode, tol in (("dense", INT8_MODEL_REL_L2_TOL),
                       ("all", INT8_ALL_MODEL_REL_L2_TOL)):
         label = f"sdxl --quant {mode}"
@@ -2132,6 +2135,117 @@ def phase_sdxl(fa, tk, tc, card: str):
     del edit, engine, bundle
     torch.cuda.empty_cache()
     return launches, drift, seconds
+
+
+UNET_GRAPH_BATCHES = (2, 16)   # Lightning's UNet call and the batch cells'
+UNET_GRAPH_NFE = 4
+
+
+def first_difference(got, want) -> str:
+    """"" where two tensors of one shape and dtype are bit for bit equal,
+    else the first element that differs, how many do and by how much."""
+    ne = got.view(torch.int32) != want.view(torch.int32) \
+        if got.dtype == torch.float32 else got != want
+    if not bool(ne.any()):
+        return ""
+    idx = tuple(torch.nonzero(ne)[0].tolist())
+    return (f"first at {idx}: {got[idx].item()!r} against"
+            f" {want[idx].item()!r}; {int(ne.sum())} of {ne.numel()}"
+            f" elements differ, max |diff|"
+            f" {(got.float() - want.float()).abs().max().item():.3e}")
+
+
+def phase_unet_graph(bundle, fa, tk, tc, card: str) -> None:
+    """The UNet call as a CUDA graph (`cfgpp_tpu_torch.models.unet_graph`)
+    against its eager body, sdxl at 1024^2, exact and ``--quant dense``:
+    at batch 2 and 16, the capturing call (the eager body on a side stream)
+    and replays on other inputs and on the first ones again, each bit for
+    bit the eager body on the same inputs, each moving the
+    launch counters by the eager call's launches; then two requests in a
+    row with different prompts (``dpm++_2m_cfgpp`` w=5, 4 NFE), replayed,
+    each bit for bit the same request with the UNet eager, with the same
+    launches."""
+    from cfgpp_tpu_torch.engine import DiffusionEngine
+    from cfgpp_tpu_torch.models import unet_graph
+    from cfgpp_tpu_torch.models.unet import precompute_cross_kv
+    from cfgpp_tpu_torch.utils import profiling
+
+    reads = counters(fa, tk, tc)
+    res = SDXL_RESOLUTION
+    eager = mock.patch.object(unet_graph.CudaGraphs, "engages",
+                              staticmethod(lambda sample: False))
+
+    def moved(fn):
+        before = {n: r() for n, r in reads.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.recording() as rec:
+            out = fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths = [r.name for r in rec.readings if r.name.startswith("unet.")]
+        return out, {n: r() - before[n] for n, r in reads.items()}, paths, \
+            host, wall
+
+    for mode in (None, "dense"):
+        b = bundle if mode is None else bundle.quantized(mode)
+        label = "sdxl exact" if mode is None else f"sdxl --quant {mode}"
+        unet = b.unet
+        unet.graphs.clear()
+        engine = DiffusionEngine(b, SDXL_SOLVER, nfe=UNET_GRAPH_NFE)
+        torch.cuda.reset_peak_memory_stats()
+        for batch in UNET_GRAPH_BATCHES:
+            ctx, added = conditioning(engine, ["", PROMPTS[0]] * (batch // 2),
+                                      res)
+            gen = torch.Generator(device="cuda").manual_seed(batch)
+            s = res // b.vae_scale_factor
+            zs = [torch.randn((batch, s, s, 4), generator=gen, device="cuda")
+                  for _ in range(2)]
+            ts = [torch.tensor(t, device="cuda") for t in (999.0, 499.0)]
+            with torch.inference_mode():
+                ckv = precompute_cross_kv(unet, ctx)
+                for i, want_path in enumerate(("unet.capture", "unet.replay",
+                                               "unet.replay")):
+                    z, t = zs[i % 2], ts[i % 2]
+                    want, n_e, _, host_e, wall_e = moved(
+                        lambda: unet._forward_eager(z, t, ctx, *added, ckv))
+                    got, n_g, paths, host_g, wall_g = moved(
+                        lambda: unet(z, t, ctx, *added, cross_kv=ckv))
+                    diff = first_difference(got, want)
+                    print(f"  {label} UNet call at batch {batch}, {res}^2:"
+                          f" {paths} against the eager body:"
+                          f" {diff or 'bit for bit'}; launches {n_g} (eager"
+                          f" {n_e}); host {1e3 * host_g:.2f} ms, wall"
+                          f" {1e3 * wall_g:.2f} ms (eager {1e3 * host_e:.2f} /"
+                          f" {1e3 * wall_e:.2f}) [{card}]", flush=True)
+                    check(paths == [want_path], f"{label} batch {batch}:"
+                          f" {paths}, expected [{want_path!r}]")
+                    check(not diff, f"{label} batch {batch} {want_path}:"
+                          f" replay differs from the eager body, {diff}")
+                    check(n_g == n_e, f"{label} batch {batch} {want_path}:"
+                          f" launches {n_g}, eager {n_e}")
+        graphed = [one_request(engine, p, reads, label, res, SDXL_GUIDANCE)
+                   for p in PROMPTS[:2]]
+        with eager:
+            plain = [one_request(engine, p, reads, label, res, SDXL_GUIDANCE)
+                     for p in PROMPTS[:2]]
+        for k, (g, e) in enumerate(zip(graphed, plain)):
+            diff = first_difference(g[0], e[0])
+            print(f"  {label} request {k + 1} ({UNET_GRAPH_NFE} NFE):"
+                  f" replayed against eager {diff or 'bit for bit'};"
+                  f" {g[2]:.3f} s against {e[2]:.3f} s, launches {g[3]}"
+                  f" (eager {e[3]}) [{card}]", flush=True)
+            check(not diff, f"{label} request {k + 1}: {diff}")
+            check(g[3] == e[3], f"{label} request {k + 1}: launches {g[3]},"
+                  f" eager {e[3]}")
+        check(first_difference(graphed[0][0], graphed[1][0]) != "",
+              f"{label}: the two prompts gave one image")
+        print(f"  {label}: {len(unet.graphs.entries)} graphs; peak device"
+              f" memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+              f" [{card}]", flush=True)
+        del engine, unet, b
+        torch.cuda.empty_cache()
 
 
 def bundle_tensors(bundle) -> dict:

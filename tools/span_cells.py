@@ -23,7 +23,10 @@ writer), warms it up, then:
    device idle of each span.  The harness's own reduction
    (``bench_port/trace.py``) runs on the same events without the
    program's ``cfgpp.*`` ranges, so its per-span device times can be set
-   beside the program's.
+   beside the program's;
+3. the UNet graph runner's counter (``unet.replay``, ``unet.capture``,
+   ``unet.eager``) in the warm-up, the recorder-on runs of 1 and the two
+   traced stretches: the replay share of each one's UNet calls.
 
 Prints the card's name and power limit first and one JSON object last
 (also written to ``--out``).  ``--device cpu --tiny`` runs the cell's mix
@@ -33,6 +36,7 @@ at the port's tiny preset on the CPU (no device events there).
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import statistics
@@ -63,8 +67,9 @@ def run_unit(program, unit, device):
     return time.perf_counter() - t0, time.thread_time() - c0
 
 
-def cost(program, traffic, pairs: int, device) -> dict:
-    """Each unit twice, recorder off and on, in turns."""
+def cost(program, traffic, pairs: int, device, recs: list) -> dict:
+    """Each unit twice, recorder off and on, in turns; the recordings of
+    the runs with it on are appended to ``recs``."""
     from cfgpp_tpu_torch.utils import profiling
     runs = {"off": [], "on": []}
     spans = []
@@ -75,7 +80,8 @@ def cost(program, traffic, pairs: int, device) -> dict:
                 profiling.start_recording()
             runs[state].append(run_unit(program, unit, device))
             if state == "on":
-                spans.append(len(profiling.stop_recording().spans))
+                recs.append(profiling.stop_recording())
+                spans.append(len(recs[-1].spans))
     out = {}
     for i, what in enumerate(("wall_ms", "cpu_ms")):
         off = [1e3 * r[i] for r in runs["off"]]
@@ -103,6 +109,22 @@ def per_span_ns(fn_calls: int = 200000) -> dict:
         out[state] = (time.perf_counter_ns() - t0) / fn_calls
         if state == "on":
             profiling.stop_recording()
+    return out
+
+
+def unet_graph(stretches: dict) -> dict:
+    """The UNet graph runner's counter (``unet.replay``, ``unet.capture``,
+    ``unet.eager``) in each stretch {name: [recordings]}, and the replay
+    share of the stretch's UNet calls (%)."""
+    out = {}
+    for name, recs in stretches.items():
+        n = collections.Counter(r.name for rec in recs for r in rec.readings
+                                if r.name.startswith("unet."))
+        calls = sum(n.values())
+        out[name] = {"calls": calls, "replay": n["unet.replay"],
+                     "capture": n["unet.capture"], "eager": n["unet.eager"],
+                     "replay_share_pct": 100.0 * n["unet.replay"] / calls
+                     if calls else None}
     return out
 
 
@@ -156,8 +178,10 @@ def traced(program, traffic, k: int, device) -> dict:
         [e for e in events if not e.name().startswith("cfgpp.")]))
     harness_all = reduce(as_profiler(events))
     read_s = time.perf_counter() - t_read
-    return readings(rec_u, rec_p, att, harness, harness_host, events, k,
-                    wall_s, window_s, read_s, harness_all)
+    out = readings(rec_u, rec_p, att, harness, harness_host, events, k,
+                   wall_s, window_s, read_s, harness_all)
+    out["recordings"] = (rec_u, rec_p)
+    return out
 
 
 def _by_name(rec, att, inclusive: bool) -> dict:
@@ -307,14 +331,22 @@ def main(argv=None) -> dict:
     program = Program(config, mix, args.seed, device)
     if mix["entry"] == "sample_batch":
         program.open_writer()
+    from cfgpp_tpu_torch.utils import profiling
     try:
-        program.warm_up(args.seed + 1)
+        with profiling.recording() as warm:
+            program.warm_up(args.seed + 1)
         traffic = Traffic(mix, args.seed)
+        cost_recs = []
         out = {"workload": args.workload, "seed": args.seed, "card": card,
                "per_span_ns": per_span_ns(),
-               "cost": cost(program, traffic, args.pairs, device)}
+               "cost": cost(program, traffic, args.pairs, device, cost_recs)}
         print(f"cost: {json.dumps(out['cost'])}", flush=True)
         out.update(traced(program, traffic, mix["trace_units"], device))
+        unprofiled, profiled = out.pop("recordings")
+        out["unet_graph"] = unet_graph({
+            "warm_up": [warm], "cost_on": cost_recs,
+            "unprofiled": [unprofiled], "profiled": [profiled]})
+        print(f"unet graph: {json.dumps(out['unet_graph'])}", flush=True)
     finally:
         program.close()
     line = json.dumps(out)
