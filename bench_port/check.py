@@ -3,14 +3,13 @@ it has closed, against the plain float32 reference's images of the same
 prompts and seeds.
 
 The program's image is the uint8 array it handed the host (a request) or the
-PNG it wrote, read back from disk (a batch).  The reference works out again
-everything the program derived: its weights from the seed, the tokens, the
-text embeddings, zT, the solver's coefficients, every UNet call with plain
-attention and the cross-attention k/v in the call, the VAE decode.  Each
-image's number is ``image_mae``, the mean |program - reference| / 255 over
-its pixels, both uint8 (the reference rounded as the program rounds); the
-run's is the worst over the images checked, held to the cell's limit
-(``limits/<workload>.json``).
+PNG it wrote, read back from disk (a batch).  The reference is the
+configuration's family's (``families/<family>``): it works out again
+everything the program derived, from its weights, drawn again from the
+seed, to the decoded image.  Each image's number is ``image_mae``, the mean
+|program - reference| / 255 over its pixels, both uint8 (the reference
+rounded as the program rounds); the run's is the worst over the images
+checked, held to the cell's limit (``limits/<workload>.json``).
 """
 
 from __future__ import annotations
@@ -23,8 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bench_port import weights
-from bench_port.reference.pipeline import Reference
+from bench_port import families, weights
 from bench_port.reference.ops import Ops, no_tf32
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -110,14 +108,17 @@ def pick(done: List, mix: Dict, seed: int) -> List[Tuple[object, int]]:
 
 
 def reference(config: Dict, seed: int, device, ops: Optional[Ops] = None,
-              quant: Optional[str] = None) -> Reference:
-    """The reference models with the program's weights drawn again from
-    the seed, each in the dtype its module is served in (an int8 cell's
-    weights are quantized again from these, in the reference's layers)."""
+              quant: Optional[str] = None):
+    """The family's reference models with the program's weights drawn
+    again from the seed, each in the dtype its module is served in (an int8
+    cell's weights are quantized again from these, in the reference's
+    layers)."""
     no_tf32()
-    ref = Reference(config, device, ops, quant)
+    family = families.load(config)
+    ref = family.reference(config, device, ops, quant)
     for name, module in ref.modules().items():
-        weights.fill_(module, seed, name, DTYPES[config["dtypes"][name]])
+        weights.fill_(module, seed, name, DTYPES[config["dtypes"][name]],
+                      family.MODULES, getattr(family, "DRAWS", None))
     return ref
 
 

@@ -1,14 +1,14 @@
 """The control of ``correct``: the reference put in the program's place and
 computed in the precision below the one the cell states: fp8 (e4m3, one
-scale per tensor, float32 sums) below bfloat16 in the UNet and the VAE
-decode, and W4A4 at the W8A8 sites of an int8 cell (``quant`` in its mix).
-The text encoders, which the configuration states in float32, keep it.  For
-each seed it draws the cell's traffic as a run does, makes the first
-``check_images`` images of it (or ``--images``: fewer images can only read
-lower) with the float32 reference and with the control, rounds the
-control's to uint8 as the program rounds, and prints the numbers a run
-compares, beside the cell's limits.  A sound limit fails the control on
-every seed.
+scale per tensor, float32 sums) below bfloat16 in each module that the
+configuration's family computes in bfloat16 (``compute_dtypes``), and
+W4A4 at the W8A8 sites of an int8 cell (``quant`` in its mix).  A module
+that the configuration states in float32 keeps it.  For each seed it draws
+the cell's traffic as a run does, makes the first ``check_images`` images
+of it (or ``--images``: fewer images can only read lower) with the float32
+reference and with the control, rounds the control's to uint8 as the
+program rounds, and prints the numbers a run compares, beside the cell's
+limits.  A sound limit fails the control on every seed.
 
     python3 bench_port/control.py --workload <cell> --seeds 1 2 3 \\
         [--images N]
@@ -32,8 +32,8 @@ def control_numbers(cell, seed: int, device, images: int = None):
     """The numbers of the control against the reference for each of the
     first ``images`` (the mix's ``check_images``) images of the seed's
     traffic, and the worst of each."""
+    from bench_port import families
     from bench_port.check import compare, reference, to_uint8
-    from bench_port.reference.models import set_ops
     from bench_port.reference.ops import F32, Ops
     from bench_port.traffic import Traffic
 
@@ -48,12 +48,12 @@ def control_numbers(cell, seed: int, device, images: int = None):
             drawn.append((prompt, unit.seed, index))
     ref = reference(config, seed, device, quant=mix["quant"])
     lower = Ops(int_bits=4) if mix["quant"] else Ops(fp8=True)
-    compute = {**config["dtypes"], "vae": config["dtypes"][
-        "vae_decode_compute"]}
+    family = families.load(config)
+    compute = family.compute_dtypes(config)
 
     def image(ops, prompt, s, index):
         for name, m in ref.modules().items():
-            set_ops(m, F32 if compute[name] == "float32" else ops)
+            family.set_ops(m, F32 if compute[name] == "float32" else ops)
         return ref.image(mix, mix["null_prompt"], prompt, s,
                          index).cpu().numpy()
 

@@ -8,7 +8,8 @@ call; the cross k/v once a unit; shapes from the configuration, bounds from
 `KERNELS`, ``csrc/int8_matmul.cu``'s row quantize and GEMM."""
 
 from bench_port import roofline
-from bench_port.flops import TOKENS, latent_hw, layers_by_level, unet_calls
+from bench_port.families.sd_unet.flops import (TOKENS, latent_hw,
+                                             layers_by_level, unet_calls)
 from bench_port.readers import kernel_s
 
 KERNELS = ("quantize_rows", "gemm_s8")

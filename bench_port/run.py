@@ -101,6 +101,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device):
         if trace:
             program.instrument()
         program.warm_up(seed + 1)
+        program.spans.times = {}        # the stretches' spans alone
         setup_s = time.perf_counter() - T0
         traffic = Traffic(mix, seed)
         done, failed, metrics, extra = [], 0, {}, {}

@@ -1,13 +1,14 @@
-"""The system under test: the port's `DiffusionEngine` of one configuration,
-its weights drawn from the seed, and the loop that drives it as the mix
-says.  This is the only module of the benchmark that imports the port, and
-it imports only its public modules.
+"""The system under test: the port's engine of one configuration, built by
+the configuration's family (``bench_port/families/``) with its weights
+drawn from the seed, and the loop that drives it as the mix says.  With
+the families, this is the only part of the benchmark that imports the
+port, and it imports only its public modules.
 
-Spans: with tracing on, the harness wraps the engine's text encode, the
-UNet module's ``forward`` and the VAE's ``decode``, and times each unit and
-the batch loop's calls into the PNG writer, on the host clock (no synchronisation); while the
-profiler runs, each span is also a ``torch.profiler.record_function`` range,
-so the trace ties device work to it.
+Spans: with tracing on, the harness wraps the calls that the family names
+(``spans``), and times each unit and the batch loop's calls into the PNG
+writer, on the host clock (no synchronisation); while the profiler runs,
+each span is also a ``torch.profiler.record_function`` range, so the trace
+ties device work to it.
 """
 
 from __future__ import annotations
@@ -23,10 +24,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench_port import weights
+from bench_port import families
 from bench_port.traffic import Traffic, Unit
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 WARMUP_INDEX = 10 ** 9
 
 
@@ -64,23 +64,6 @@ class Spans:
         setattr(obj, attr, wrapped)
 
 
-def check_config(port_cfg, config: Dict) -> None:
-    """The port's preset must be the configuration file, key by key."""
-    for part in ("unet", "vae", "text_encoder", "text_encoder_2"):
-        ours = config.get(part)
-        theirs = getattr(port_cfg, part)
-        if (ours is None) != (theirs is None):
-            raise ValueError(f"{config['name']}: {part} present on one side")
-        if ours is None:
-            continue
-        for key, value in ours.items():
-            got = getattr(theirs, key)
-            got = list(got) if isinstance(got, tuple) else got
-            if got != value:
-                raise ValueError(f"{config['name']}.{part}.{key}: the port's "
-                                 f"preset has {got!r}, the file {value!r}")
-
-
 @dataclasses.dataclass
 class Done:
     """One finished unit: its inputs, and where its images are."""
@@ -94,60 +77,20 @@ class Program:
     """The port's engine on ``device``, with weights from ``seed``."""
 
     def __init__(self, config: Dict, mix: Dict, seed: int, device):
-        from cfgpp_tpu_torch.configs import get_bundle_config
-        from cfgpp_tpu_torch.engine import DiffusionEngine, ModelBundle
-        from cfgpp_tpu_torch.models.clip import CLIPTextModel
-        from cfgpp_tpu_torch.models.unet import UNet2DConditionModel
-        from cfgpp_tpu_torch.models.vae import AutoencoderKL
-        from cfgpp_tpu_torch.weights.tokenizer import load_tokenizer
-
         self.config, self.mix = config, mix
         self.device = torch.device(device)
-        cfg = get_bundle_config(config["preset"])
-        check_config(cfg, config)
-        dt = {k: DTYPES[v] for k, v in config["dtypes"].items()}
-        with torch.device("meta"):
-            made = {"unet": UNet2DConditionModel(cfg.unet).to(dt["unet"]),
-                    "vae": AutoencoderKL(cfg.vae, compute_dtype=dt[
-                        "vae_decode_compute"]).to(dt["vae"]),
-                    "text_encoder": CLIPTextModel(cfg.text_encoder).to(
-                        dt["text_encoder"])}
-            if cfg.text_encoder_2 is not None:
-                made["text_encoder_2"] = CLIPTextModel(
-                    cfg.text_encoder_2).to(dt["text_encoder_2"])
-        mods = {}
-        for name, m in made.items():
-            m = m.to_empty(device=self.device).eval().requires_grad_(False)
-            mods[name] = weights.fill_(m, seed, name, dt[name])
-
-        def tok(part, pad=None):
-            c = getattr(cfg, part)
-            return load_tokenizer(None, vocab_size=c.vocab_size,
-                                  eos_token_id=c.eos_token_id,
-                                  pad_token_id=pad)
-
-        bundle = ModelBundle(
-            config=cfg, unet=mods["unet"], vae=mods["vae"],
-            text_encoder=mods["text_encoder"], tokenizer=tok("text_encoder"),
-            text_encoder_2=mods.get("text_encoder_2"),
-            tokenizer_2=(tok("text_encoder_2", 0) if "text_encoder_2" in mods
-                         else None))
-        if mix["quant"]:
-            bundle = bundle.quantized(mix["quant"])
-        self.bundle = bundle
-        self.engine = DiffusionEngine(bundle, solver=mix["solver"],
-                                      nfe=mix["nfe"])
+        self.family = families.load(config)
+        self.family.check_config(config)
+        self.engine = self.family.build(config, mix, seed, self.device)
         self.spans = Spans()
         self.writer = None
         self.out_dir = None
 
     # ------------------------------------------------------------- tracing
     def instrument(self) -> None:
-        s = self.spans
-        s.wrap(self.engine, "text_embed", "text")
-        s.wrap(self.bundle.unet, "forward", "unet")
-        s.wrap(self.bundle.vae, "decode", "vae")
-        s.on = True
+        for obj, attr, name in self.family.spans(self):
+            self.spans.wrap(obj, attr, name)
+        self.spans.on = True
 
     # --------------------------------------------------------------- units
     def open_writer(self) -> None:
@@ -157,7 +100,7 @@ class Program:
 
     def release(self) -> None:
         """Drop the engine and its modules (the caller frees the memory)."""
-        self.engine = self.bundle = None
+        self.engine = None
         self.spans = Spans()
 
     def close(self) -> None:
@@ -203,11 +146,10 @@ class Program:
 
     def warm_up(self, traffic_seed: int) -> None:
         """One unit of the mix's shapes, with ``warmup_nfe`` steps (the same
-        UNet, decode and writer shapes as the window's), then a sync."""
-        from cfgpp_tpu_torch.engine import DiffusionEngine
+        model, decode and writer shapes as the window's), then a sync."""
         nfe = self.mix.get("warmup_nfe", self.mix["nfe"])
-        engine = self.engine if nfe == self.mix["nfe"] else DiffusionEngine(
-            self.bundle, solver=self.mix["solver"], nfe=nfe)
+        engine = self.engine if nfe == self.mix["nfe"] else \
+            self.family.with_nfe(self.engine, self.mix, nfe)
         unit = Traffic(self.mix, traffic_seed).next()
         if unit.indices is not None:       # apart from the window's files
             unit.indices = [WARMUP_INDEX + i for i in unit.indices]

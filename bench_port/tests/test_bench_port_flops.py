@@ -1,7 +1,9 @@
-"""``bench_port/flops.py`` against ``torch.utils.flop_counter.FlopCounterMode``
-over the reference modules on the meta device, at the cells' shapes and
-published widths: one UNet call (cross k/v in the call, as the plain module
-computes them), one VAE decode, each text encoder."""
+"""The SD / SDXL UNet family's FLOP counts (``families/sd_unet/flops.py``,
+which ``bench_port/flops.py`` dispatches to) against
+``torch.utils.flop_counter.FlopCounterMode`` over the reference modules on
+the meta device, at the cells' shapes and published widths: one UNet call
+(cross k/v in the call, as the plain module computes them), one VAE decode,
+each text encoder."""
 
 import json
 
@@ -10,6 +12,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from bench_port import flops, manifest
+from bench_port.families.sd_unet import flops as sd_flops
 from bench_port.reference import models
 
 CASES = [("sd15", 512), ("sdxl", 1024)]
@@ -39,10 +42,10 @@ def test_unet_call(name, res):
             pooled = torch.empty(2, cfg["text_encoder_2"]["projection_dim"])
             ids = torch.empty(2, 6)
         n = counted(lambda: unet(z, torch.tensor([10]), ctx, pooled, ids))
-    want = flops.unet_call_flops(u, 2, hw, cross_kv=True)["total"]
+    want = sd_flops.unet_call_flops(u, 2, hw, cross_kv=True)["total"]
     assert n == want
-    kv = flops.cross_kv_flops(u, 2)
-    assert flops.unet_call_flops(u, 2, hw)["total"] == want - kv
+    kv = sd_flops.cross_kv_flops(u, 2)
+    assert sd_flops.unet_call_flops(u, 2, hw)["total"] == want - kv
 
 
 @pytest.mark.parametrize("name,res", CASES)
@@ -51,7 +54,7 @@ def test_vae_decode(name, res):
     with torch.device("meta"):
         vae = models.VAEDecoder(cfg["vae"])
         n = counted(lambda: vae(torch.empty(1, res // 8, res // 8, 4)))
-    assert n == flops.vae_decode_flops(cfg["vae"], res // 8)
+    assert n == sd_flops.vae_decode_flops(cfg["vae"], res // 8)
 
 
 @pytest.mark.parametrize("name,part", [("sd15", "text_encoder"),
@@ -63,7 +66,7 @@ def test_text_encoder(name, part):
         enc = models.CLIPText(c)
         ids = torch.zeros(2, 77, dtype=torch.long)
         n = counted(lambda: enc(ids))
-    assert n == flops.clip_flops(c, 2)
+    assert n == sd_flops.clip_flops(c, 2)
 
 
 def test_unit_flops_of_the_cells():

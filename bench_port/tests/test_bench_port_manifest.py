@@ -121,10 +121,9 @@ def test_files_are_named_from_name_characters():
 
 @pytest.mark.parametrize("config", [c["name"] for c in BM["configs"]])
 def test_config_file_is_the_port_preset(config):
-    from cfgpp_tpu_torch.configs import get_bundle_config
-    from bench_port.system import check_config
+    from bench_port import families
     entry = next(c for c in BM["configs"] if c["name"] == config)
     data = json.loads((manifest.REPO / entry["file"]).read_text())
     assert data["source"] == entry["source"]
     assert data["reduced"] == entry["reduced"] == []
-    check_config(get_bundle_config(data["preset"]), data)
+    families.load(data).check_config(data)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench_port import check, manifest, weights
+from bench_port import check, families, manifest, weights
 from bench_port.reference.pipeline import Reference, tokenize
 from bench_port.run import run_cell
 from bench_port.system import Program
@@ -39,10 +39,10 @@ def pair(request):
 
 def test_weights_are_the_same(pair):
     _, prog, ref = pair
-    ours = dict(prog.bundle.unet.named_parameters())
+    ours = dict(prog.engine.bundle.unet.named_parameters())
     for name, p in ref.unet.named_parameters():
         assert torch.equal(ours[name].float(), p), name
-    vae = dict(prog.bundle.vae.named_parameters())
+    vae = dict(prog.engine.bundle.vae.named_parameters())
     for name, p in ref.vae.named_parameters():
         assert torch.equal(vae[name], p), name
 
@@ -74,10 +74,10 @@ def test_unet_and_decode_agree(pair):
     t = torch.tensor([500])
     with torch.no_grad():
         want = ref.unet(z, t, ctx, pooled, ids)
-        got = prog.bundle.unet(z, t, ctx, *(() if ids is None else
-                                            (pooled, ids)))
+        got = prog.engine.bundle.unet(z, t, ctx, *(() if ids is None else
+                                                   (pooled, ids)))
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        img = prog.bundle.vae.decode(z[:1])
+        img = prog.engine.bundle.vae.decode(z[:1])
         torch.testing.assert_close(img.float(), ref.vae(z[:1]), rtol=1e-4,
                                    atol=1e-4)
 
@@ -88,10 +88,11 @@ def test_draws_do_not_depend_on_other_groups():
     cell = tiny_cell("sd15_t2i_b1")
     a = check.reference(cell["config"], 5, "cpu").vae
     prog = Program(cell["config"], cell["mix"], 5, "cpu")
-    full = dict(prog.bundle.vae.named_parameters())
+    full = dict(prog.engine.bundle.vae.named_parameters())
     assert any(n.startswith("encoder.") for n in full)
     for name, p in a.named_parameters():
         assert torch.equal(full[name], p)
     b = Reference(cell["config"], "cpu").vae
-    weights.fill_(b, 6, "vae", torch.float32)
+    weights.fill_(b, 6, "vae", torch.float32,
+                  families.load(cell["config"]).MODULES)
     assert not torch.equal(a.decoder.conv_in.weight, b.decoder.conv_in.weight)

@@ -55,7 +55,7 @@ def half_the_unet_batch_left_out(monkeypatch):
     """The unconditional half of each UNet call is not computed: the
     conditional half stands in for it."""
     def patch(program):
-        unet = program.bundle.unet
+        unet = program.engine.bundle.unet
         forward = unet.forward
 
         def half(sample, *a, **kw):
@@ -71,8 +71,8 @@ def half_the_unet_batch_left_out(monkeypatch):
 def answer_altered(monkeypatch):
     """Each decoded image is moved by 0.25 (of [-1, 1]) where it is made."""
     def patch(program):
-        decode = program.bundle.vae.decode
-        program.bundle.vae.decode = lambda z: decode(z) + 0.25
+        decode = program.engine.bundle.vae.decode
+        program.engine.bundle.vae.decode = lambda z: decode(z) + 0.25
     _patch_program(monkeypatch, patch)
     yield
 
