@@ -1,6 +1,7 @@
 """Shared CLI plumbing: bundle construction + engine creation.
 
-Counterpart of ``cfgpp_tpu/cli/common.py``: every model of the JAX CLI.
+Counterpart of ``cfgpp_tpu/cli/common.py``: every model of the JAX CLI,
+and SD3 (``SD3_MODELS``, seeded random weights only).
 Weights: ``--ckpt_dir`` (an HF-layout safetensors directory, e.g. one that
 ``cfgpp_tpu_torch.cli.convert_checkpoint`` wrote) or seeded random ones;
 ``--light_ckpt`` overlays a single-file SGM checkpoint (SDXL-Lightning) on
@@ -21,7 +22,10 @@ from cfgpp_tpu_torch.weights.single_file import load_single_file
 
 SD_MODELS = ("sd15", "sd20", "sd21", "sd21_v", "tiny_sd")   # the JAX SD_MODELS
 SDXL_MODELS = ("sdxl", "sdxl_lightning", "tiny_sdxl")
-MODELS = SD_MODELS + SDXL_MODELS
+# `configs_sd3.SD3_PRESETS`, named here so that the SD / SDXL commands do
+# not import the SD3 modules
+SD3_MODELS = ("sd35_large", "tiny_sd3")
+MODELS = SD_MODELS + SDXL_MODELS + SD3_MODELS
 
 # Reference default negative prompt (examples/text_to_img.py:17).
 DEFAULT_NULL_PROMPT = ("low quality,jpeg artifacts,blurry,poorly drawn,ugly,"
@@ -39,7 +43,8 @@ def add_common_args(parser: argparse.ArgumentParser, default_method: str = "ddim
     parser.add_argument("--method", type=str, default=default_method,
                         help="a solver of the model's family: sd "
                              f"{list_solvers('sd')}; sdxl "
-                             f"{list_solvers('sdxl')}")
+                             f"{list_solvers('sdxl')}; sd3 "
+                             f"{list_solvers('sd3')}")
     parser.add_argument("--model", type=str, default="sd15", choices=MODELS)
     parser.add_argument("--NFE", type=int, default=default_nfe)
     parser.add_argument("--seed", type=int, default=42)
@@ -75,7 +80,8 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
     """``parser.parse_args``, then ``--method`` checked against the solvers
     of ``--model``'s family."""
     args = parser.parse_args(argv)
-    family = get_bundle_config(args.model).family
+    family = ("sd3" if args.model in SD3_MODELS
+              else get_bundle_config(args.model).family)
     if args.method not in list_solvers(family):
         parser.error(f"argument --method: {args.method!r} is no {family} "
                      f"solver (choose from {list_solvers(family)})")
@@ -112,6 +118,8 @@ def build_engine(args) -> DiffusionEngine:
     float32`` also turns TF32 off (`f32_without_tf32`)."""
     f32_without_tf32(args.dtype)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.model in SD3_MODELS:
+        return build_sd3_engine(args, dtype)
     if args.ckpt_dir:
         bundle = ModelBundle.from_pretrained(args.ckpt_dir, args.model,
                                              dtype=dtype, device=args.device)
@@ -123,3 +131,17 @@ def build_engine(args) -> DiffusionEngine:
     if args.quant:
         bundle = bundle.quantized(mode=args.quant)
     return DiffusionEngine(bundle, solver=args.method, nfe=args.NFE)
+
+
+def build_sd3_engine(args, dtype: torch.dtype):
+    """SD3 (``--model sd35_large``): seeded random weights (no checkpoint
+    loader yet), no int8 mode."""
+    refused = [f for f in ("ckpt_dir", "light_ckpt", "quant")
+               if getattr(args, f, None)]
+    if refused:
+        raise SystemExit(f"--model {args.model}: SD3 takes no "
+                         + ", ".join(f"--{f}" for f in refused))
+    from cfgpp_tpu_torch.engine.sd3 import SD3Bundle, SD3Engine
+    bundle = SD3Bundle.random_init(args.model, seed=0, dtype=dtype,
+                                   device=args.device)
+    return SD3Engine(bundle, solver=args.method, nfe=args.NFE)

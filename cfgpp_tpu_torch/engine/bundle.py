@@ -56,8 +56,9 @@ def _device(device: Device) -> torch.device:
 def _random_init_(module: nn.Module, gen: torch.Generator) -> None:
     """Fill every parameter from ``gen`` the way flax's default initializers
     do: dense and conv kernels lecun-normal (std fan_in^-1/2), biases 0,
-    norm scales 1, token embeddings std vocab^-1/2 (flax ``Embed``), CLIP's
-    position embedding std 0.01 (``cfgpp_tpu/models/clip.py:91``)."""
+    norm scales 1 (scale-only norms too), token embeddings std vocab^-1/2
+    (flax ``Embed``), CLIP's position embedding std 0.01
+    (``cfgpp_tpu/models/clip.py:91``)."""
     def normal_(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
 
@@ -70,6 +71,9 @@ def _random_init_(module: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 0.01 if name.endswith("position_embedding")
                     else m.num_embeddings ** -0.5)
+        elif (type(m).__name__.endswith("Norm") and [
+                n for n, _ in m.named_parameters(recurse=False)] == ["weight"]):
+            m.weight.fill_(1.0)     # a scale-only norm (SD3's RMSNorms, T5's)
         else:
             continue
         if getattr(m, "bias", None) is not None:

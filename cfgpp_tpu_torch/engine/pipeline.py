@@ -227,12 +227,15 @@ class DiffusionEngine:
     def _decode(self, z: torch.Tensor) -> torch.Tensor:
         """Per-image decode (a whole-batch decode multiplies the VAE's
         activation memory by the batch) -> float32 images in [0, 1]."""
-        scale = self.bundle.config.vae.scaling_factor
         imgs = []
         for j, zi in enumerate(z):
             with profiling.span("decode", j):
-                imgs.append(self.bundle.vae.decode(zi[None] / scale))
+                imgs.append(self.bundle.vae.decode(self._vae_input(zi[None])))
         return (torch.cat(imgs).float() / 2.0 + 0.5).clamp(0.0, 1.0)
+
+    def _vae_input(self, z: torch.Tensor) -> torch.Tensor:
+        """The VAE decoder's input from a latent: z / scaling factor."""
+        return z / self.bundle.config.vae.scaling_factor
 
     def _encode(self, img: torch.Tensor, generator) -> torch.Tensor:
         """VAE encode (f32 compute: it feeds the inversion's source latent)
@@ -507,16 +510,32 @@ class DiffusionEngine:
                                             mode=mode)
                 zT = run_inversion(self.spec, self.inv_plan, inv_eps, z0,
                                    cfg_guidance)
-        elif init_latent_override is not None:
-            zT = self._as_f32(init_latent_override)
         else:
-            with profiling.span("init_latent"):
-                gens = self._generators(seed, sample_indices, 0)
-                shape = self.latent_shape(batch, res)
-                zT = (init_latent(self.plan, gens, shape)
-                      if sample_indices is None
-                      else init_latent_per_sample(self.plan, gens, shape))
+            zT = self._initial_latent(seed, sample_indices, batch, res,
+                                      init_latent_override)
+        return self._solve_and_decode(
+            eps_fn, zT, cfg_guidance, seed, sample_indices, noise_override,
+            callback_fn, unrolled, return_trajectory)
 
+    def _initial_latent(self, seed: int, sample_indices: Optional[List[int]],
+                        batch: int, res: int, override) -> torch.Tensor:
+        """zT: ``override``, else the request's stream (``sample_indices``
+        None) or each sample's (`_generators` tag 0)."""
+        if override is not None:
+            return self._as_f32(override)
+        with profiling.span("init_latent"):
+            gens = self._generators(seed, sample_indices, 0)
+            shape = self.latent_shape(batch, res)
+            return (init_latent(self.plan, gens, shape)
+                    if sample_indices is None
+                    else init_latent_per_sample(self.plan, gens, shape))
+
+    def _solve_and_decode(self, eps_fn, zT: torch.Tensor, cfg_guidance,
+                          seed: int, sample_indices: Optional[List[int]],
+                          noise_override, callback_fn: Optional[Callable],
+                          unrolled: bool, return_trajectory: bool):
+        """The solver loop from zT, the decode and the callback replay;
+        returns (images, trajectory or None)."""
         noise_fn = self._noise_fn(seed, zT, noise_override, sample_indices)
         traj = None
         if unrolled:

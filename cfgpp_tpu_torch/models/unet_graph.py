@@ -6,7 +6,9 @@ inference mode, as every engine path runs), the runner captures the
 module's eager body (``UNet2DConditionModel._forward_eager``) once per
 input signature and replays it from then on: the host launches one graph
 instead of the call's ~3000 operations.  Every other call (the CPU, the
-meta device, autograd on) runs the eager body as it is.
+meta device, autograd on) runs the eager body as it is.  SD3's MMDiT
+(``models/mmdit.py``) hands its calls to a runner of its own the same way,
+its pooled text vector in the place of SDXL's added embeds.
 
 - **Signature** (`GraphRunner.key`): the device; shape, strides and dtype
   of ``sample``, ``timesteps``, the context, SDXL's added embeds and time
@@ -45,7 +47,8 @@ meta device, autograd on) runs the eager body as it is.
   launches.
 - **Engagement:** each call is counted in the span recorder
   (`cfgpp_tpu_torch.utils.profiling.count`) as ``unet.replay``,
-  ``unet.capture`` or ``unet.eager``; nothing when the recorder is off.
+  ``unet.capture`` or ``unet.eager`` (SD3's MMDiT: ``mmdit.*``); nothing
+  when the recorder is off.
 
 The backend (`CudaGraphs`) is the only part that touches CUDA graphs; a
 stand-in with the same four methods runs every other part on the CPU.
@@ -187,27 +190,30 @@ class _Entry:
 
 
 class GraphRunner:
-    """The UNet module's graphs, at most `CAPACITY` keys (least recently
+    """A denoiser module's graphs, at most `CAPACITY` keys (least recently
     used first out).  ``backend``: `CudaGraphs` unless a test passes a
-    stand-in."""
+    stand-in.  ``name``: the denoiser's name in the counters
+    (``<name>.replay`` ...); ``routes``: the kernel routes of its key, a
+    table like `ROUTES` (SD3's MMDiT adds its own module's)."""
 
-    def __init__(self, backend=None):
+    def __init__(self, backend=None, name: str = "unet",
+                 routes: tuple = ROUTES):
         self.backend = CudaGraphs() if backend is None else backend
+        self.name, self.routes = name, routes
         self.entries: "collections.OrderedDict[tuple, _Entry]" = \
             collections.OrderedDict()
 
     def __deepcopy__(self, memo):
         """A copied module (`ModelBundle.quantized`) starts with no graph."""
-        return GraphRunner(type(self.backend)())
+        return GraphRunner(type(self.backend)(), self.name, self.routes)
 
     def clear(self) -> None:
         self.entries.clear()
 
-    @staticmethod
-    def key(flat: List[Optional[torch.Tensor]], sites: tuple) -> tuple:
+    def key(self, flat: List[Optional[torch.Tensor]], sites: tuple) -> tuple:
         return (flat[0].device, sites, tuple(_sig(t) for t in flat),
                 torch.is_inference_mode_enabled(), numerics(),
-                tuple(getattr(m, n) for m, n in _attrs(ROUTES)))
+                tuple(getattr(m, n) for m, n in _attrs(self.routes)))
 
     def __call__(self, body: Callable, sample: torch.Tensor, timesteps,
                  context: torch.Tensor,
@@ -232,11 +238,11 @@ class GraphRunner:
                 return self._capture(key, body, flat, sites)
             self.entries.move_to_end(key)
         if entry is None or entry.graph is None:
-            profiling.count("unet.eager")
+            profiling.count(f"{self.name}.eager")
             return body(sample, timesteps, context, added_text_embeds,
                         added_time_ids, cross_kv)
         self._bind(entry, flat)
-        profiling.count("unet.replay")
+        profiling.count(f"{self.name}.replay")
         return self._replay(entry)
 
     def _bind(self, entry: _Entry, flat) -> None:
@@ -272,16 +278,16 @@ class GraphRunner:
         try:
             entry.graph, entry.out = self.backend.capture(device, run)
         except RuntimeError as e:
-            log.warning("UNet call %s: CUDA graph capture failed (%s); this "
-                        "signature runs eagerly",
+            log.warning("%s call %s: CUDA graph capture failed (%s); this "
+                        "signature runs eagerly", self.name,
                         [tuple(x.shape) for x in flat[:3]], e)
             write_counters(warm)
             entry = _Entry()
-            profiling.count("unet.eager")
+            profiling.count(f"{self.name}.eager")
         else:
             entry.deltas = [b - a for a, b in zip(warm, read_counters())]
             write_counters(warm)
-            profiling.count("unet.capture")
+            profiling.count(f"{self.name}.capture")
         self.entries[key] = entry
         while len(self.entries) > CAPACITY:
             self.entries.popitem(last=False)

@@ -155,16 +155,25 @@ class AutoencoderKL(nn.Module):
         self.compute_dtype = compute_dtype
         self.encoder = VAEEncoder(cfg)
         self.decoder = VAEDecoder(cfg)
-        self.quant_conv = Conv2d(2 * cfg.latent_channels,
-                                 2 * cfg.latent_channels, 1)
-        self.post_quant_conv = Conv2d(cfg.latent_channels,
-                                      cfg.latent_channels, 1)
+        # SD3's VAE has neither 1x1 conv (``use_quant_conv`` and
+        # ``use_post_quant_conv`` false in `configs_sd3.SD3VAEConfig`)
+        self.quant_conv = (Conv2d(2 * cfg.latent_channels,
+                                  2 * cfg.latent_channels, 1)
+                           if getattr(cfg, "use_quant_conv", True) else None)
+        self.post_quant_conv = (Conv2d(cfg.latent_channels,
+                                       cfg.latent_channels, 1)
+                                if getattr(cfg, "use_post_quant_conv", True)
+                                else None)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2).float()))
+        moments = self.encoder(x.permute(0, 3, 1, 2).float())
+        if self.quant_conv is not None:
+            moments = self.quant_conv(moments)
         mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         x = z.permute(0, 3, 1, 2).to(self.compute_dtype)
-        return self.decoder(self.post_quant_conv(x)).permute(0, 2, 3, 1)
+        if self.post_quant_conv is not None:
+            x = self.post_quant_conv(x)
+        return self.decoder(x).permute(0, 2, 3, 1)

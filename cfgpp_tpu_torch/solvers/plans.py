@@ -9,7 +9,7 @@ float32/int32 arrays; the sampler's loop reads one row per step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import numpy as np
 
@@ -21,6 +21,9 @@ from cfgpp_tpu_torch.schedules.karras import (
     sigma_to_t_linear,
     timestep_log_nearest,
 )
+
+if TYPE_CHECKING:          # SD3's schedule; not loaded on the SD / SDXL path
+    from cfgpp_tpu_torch.schedules.flow import FlowSchedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +38,7 @@ class SolverPlan:
 
     n_steps: int
     coeffs: Dict[str, np.ndarray]
-    init: str                    # "vp_normal" | "ve_scaled"
+    init: str                    # "vp_normal" | "ve_scaled" | "flow_normal"
     init_scale: float            # 1.0 for VP; sqrt(sig0^2+1) for VE
     needs_noise: bool            # ancestral solvers draw per-step gaussians
     final: str                   # "z0" | "x"
@@ -271,4 +274,21 @@ def plan_euler_vp_sigmas_sdxl(schedule: DDIMSchedule) -> SolverPlan:
         init_scale=float(np.sqrt(sigmas[0] ** 2 + 1.0)),
         needs_noise=False,
         final="z0",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Flow matching (SD3): the latent moves from noise (sigma 1) to data
+# (sigma 0) along the model's velocity; zT is a standard normal draw.
+# ---------------------------------------------------------------------------
+
+def plan_flow_euler(schedule: FlowSchedule) -> SolverPlan:
+    sig = schedule.sigmas
+    return SolverPlan(
+        n_steps=schedule.n_steps,
+        coeffs=_f32(t=schedule.timesteps, sigma=sig[:-1], sigma_next=sig[1:]),
+        init="flow_normal",
+        init_scale=1.0,
+        needs_noise=False,
+        final="x",
     )

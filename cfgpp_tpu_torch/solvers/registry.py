@@ -5,7 +5,9 @@ Name -> spec tables of the reference's two solver factories
 declarative: which coefficient plan, which step kind, CFG vs CFG++,
 inversion/edit orchestration.  The SDXL table holds the 12 solvers of
 the JAX one, the 5 SDXL-Lightning ones among them (trailing timestep
-spacing; ``DiffusionEngine.sample`` refuses them at w != 1).
+spacing; ``DiffusionEngine.sample`` refuses them at w != 1).  The SD3
+table (``sd3``, flow matching) has no JAX counterpart: ``flow_euler`` and
+``flow_euler_cfg++`` (`steps.flow_euler_step`).
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from cfgpp_tpu_torch.solvers import plans
 @dataclasses.dataclass(frozen=True)
 class SolverSpec:
     name: str
-    family: str                     # "sd" | "sdxl"
-    kind: str                       # "ddim" | "euler" | "euler_a" | "dpm2s" | "dpm2m"
+    family: str                     # "sd" | "sdxl" | "sd3"
+    kind: str                       # "ddim" | "euler" | "euler_a" | "dpm2s" | "dpm2m" | "flow"
     plan_fn: Callable[[DDIMSchedule], plans.SolverPlan]
     cfgpp: bool
     # SDXL dpm++_2m_cfgpp difference-term quirk (latent_sdxl.py:916 vs
@@ -76,12 +78,19 @@ _sx("dpm++_2m_cfgpp",      kind="dpm2m",   plan_fn=plans.plan_dpmpp_2m_vp_sdxl, 
 _sx("dpm++_2m_cfgpp_lightning", kind="dpm2m", plan_fn=plans.plan_dpmpp_2m_vp_sdxl, cfgpp=True, diff_cfgpp_uses_uncond=True, lightning=True, timestep_spacing="trailing")
 _sx("ddim_edit_cfg++",     kind="ddim",    plan_fn=plans.plan_ddim,              cfgpp=True, inversion=True, edit=True)
 
+# SD3 (flow matching, velocity model): Euler with CFG, as SD3's pipeline
+# samples, and its CFG++ form.
+_SD3: Dict[str, SolverSpec] = {}
+_s3 = _reg(_SD3, "sd3")
+_s3("flow_euler",          kind="flow",    plan_fn=plans.plan_flow_euler,        cfgpp=False)
+_s3("flow_euler_cfg++",    kind="flow",    plan_fn=plans.plan_flow_euler,        cfgpp=True)
+
 # The reference names the same solver `dpm++_2m_cfg++` (SD) and
 # `dpm++_2m_cfgpp` (SDXL); each table takes both names.
 _SD["dpm++_2m_cfgpp"] = _SD["dpm++_2m_cfg++"]
 _SDXL["dpm++_2m_cfg++"] = _SDXL["dpm++_2m_cfgpp"]
 
-_TABLES = {"sd": _SD, "sdxl": _SDXL}
+_TABLES = {"sd": _SD, "sdxl": _SDXL, "sd3": _SD3}
 
 
 def _table(family: str) -> Dict[str, SolverSpec]:

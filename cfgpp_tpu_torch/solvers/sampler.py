@@ -88,6 +88,11 @@ def _make_body(spec: SolverSpec, eps_fn, w, noise_fn: Optional[NoiseFn]):
                 eps_fn, w, c, x, noise_fn(i, x), cfgpp=cfgpp)
             return x_next, (den, x_next)
         return body, same, same
+    if kind == "flow":
+        def body(x, i, c):
+            x_next, x0 = steps.flow_euler_step(eps_fn, w, c, x, cfgpp=cfgpp)
+            return x_next, (x0, x_next)
+        return body, same, same
     if kind == "dpm2m":
         def body(carry, i, c):
             carry_next, den = steps.dpmpp_2m_step(

@@ -147,3 +147,25 @@ def dpmpp_2m_step(eps_fn: EpsFn, w, c, carry, *, cfgpp: bool,
     x_next = torch.where(c["use_2m"] > 0, x_2m, euler_x)
     new_old = uncond if cfgpp else denoised
     return (x_next, new_old), denoised
+
+
+# ---------------------------------------------------------------------------
+# flow matching (SD3): ``eps_fn`` returns the velocities (v_uc, v_c)
+# ---------------------------------------------------------------------------
+
+def flow_euler_step(v_fn: EpsFn, w, c, x: torch.Tensor, *, cfgpp: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Euler step of the flow ODE; returns (x_next, x0).  x0 = x -
+    sigma v_w with v_w = v_uc + w (v_c - v_uc).  CFG (diffusers' SD3):
+    x_next = x + (sigma_next - sigma) v_w.  CFG++: x_next rebuilt from x0
+    and the unconditional noise estimate eps_uc = x + (1 - sigma) v_uc,
+    x_next = (1 - sigma_next) x0 + sigma_next eps_uc, which is the Euler
+    step where v_c = v_uc."""
+    v_uc, v_c = v_fn(x, c["t"])
+    v = cfg_mix(v_uc, v_c, w)
+    sigma, sigma_next = c["sigma"], c["sigma_next"]
+    x0 = x - sigma * v
+    if cfgpp:
+        eps_uc = x + (1.0 - sigma) * v_uc
+        return (1.0 - sigma_next) * x0 + sigma_next * eps_uc, x0
+    return x + (sigma_next - sigma) * v, x0

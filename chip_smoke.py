@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, on a machine
                                  # with an H100, nvcc and PyTorch for CUDA
+    python3 chip_smoke.py --phase sd3   # phases 1 and 14 alone
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -191,7 +192,15 @@ Phases, one status line each; any failure exits non-zero:
    rel-MAE beside phase 9's, the launches exactly an exact and a quantized
    request's; ``python -m cfgpp_tpu_torch.tools.profile_bench``: its
    segment times, modeled total and host time per solver step.
-14. summary: the run's wall time, a JSON line of the kernels
+14. sd3: ``flash_attention_hd`` at SD3.5 Large's joint attention (2 rows,
+   4429 tokens on q and kv, 38 heads of 64: no 64- or 128-row tile divides
+   4429, so both tails are partial) against its plain version within
+   ``KERNEL_REL_TOL`` x max|ref|, timed beside SDPA; then one SD3.5 Large
+   request at published widths (random weights, bf16 MMDiT and T5, 1024^2,
+   ``flow_euler_cfg++`` lambda=0.6, 28 NFE): the image finite in [0, 1],
+   38 x 28 + 1 flash launches, every MMDiT call after the first a CUDA
+   graph's replay, its seconds and peak device memory.
+15. summary: the run's wall time, a JSON line of the kernels
    (``launches_by_path`` with the sd21_v, sdxl, sdxl_lightning and MS-COCO
    runs; ``by_model``: each model's per-request sums, ``sdxl_lightning``
    from the sdxl rows at the Lightning calls, ``sdxl_mscoco_b16`` per
@@ -3279,7 +3288,87 @@ KERNEL_SOURCES = {
 }
 
 
+SD3_MODEL = "sd35_large"
+SD3_SOLVER = "flow_euler_cfg++"
+SD3_GUIDANCE = 0.6
+SD3_NFE = 28
+SD3_RESOLUTION = 1024
+SD3_TOKENS = (SD3_RESOLUTION // 16) ** 2 + 77 + 256      # 4429
+SD3_HEADS, SD3_LAYERS = 38, 38
+SD3_LAUNCHES_PER_REQUEST = SD3_LAYERS * SD3_NFE + 1      # + the VAE's
+
+
+def phase_sd3(fa, card: str) -> dict:
+    """Phase 14: the joint attention's shape, then one SD3.5 Large
+    request.  Returns its numbers."""
+    from cfgpp_tpu_torch.engine.sd3 import SD3Bundle, SD3Engine
+    from cfgpp_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (2, SD3_TOKENS, SD3_HEADS * 64)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention_hd(q, k, v, SD3_HEADS)
+    want = fa.flash_attention_hd_reference(q, k, v, SD3_HEADS)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tail = (out.float() - want.float())[:, -(SD3_TOKENS % 64):].abs().max()
+    ms = time_ms(lambda: fa.flash_attention_hd(q, k, v, SD3_HEADS))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *(sdpa_heads(x, SD3_HEADS, SD3_TOKENS) for x in (q, k, v))))
+    print(f"  flash_attention_hd sd3 joint: {shape}, {SD3_HEADS} heads:"
+          f" max_abs_err {err:.3e} (tol {KERNEL_REL_TOL} x {scale:.3e}; the"
+          f" last {SD3_TOKENS % 64} rows {tail.item():.3e}) kernel"
+          f" {ms:.4f} ms library {lib_ms:.4f} ms [{card}]", flush=True)
+    check(bool(torch.isfinite(out).all()) and err <= KERNEL_REL_TOL * scale,
+          "flash_attention_hd disagrees with its plain version at SD3's"
+          " joint attention")
+    del q, k, v, out, want
+
+    t0 = time.perf_counter()
+    bundle = SD3Bundle.random_init(SD3_MODEL, seed=0, dtype=torch.bfloat16,
+                                   device="cuda")
+    engine = SD3Engine(bundle, SD3_SOLVER, nfe=SD3_NFE)
+    torch.cuda.synchronize()
+    print(f"  random {SD3_MODEL} bundle on the card in"
+          f" {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for i, prompt in enumerate(PROMPTS[:2]):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        with profiling.recording() as rec:
+            img = engine.sample(["", prompt], cfg_guidance=SD3_GUIDANCE,
+                                seed=SEED + i, resolution=SD3_RESOLUTION)
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts = {}
+        for r in rec.readings:
+            if r.name.startswith("mmdit."):
+                counts[r.name] = counts.get(r.name, 0) + 1
+        check_image(img, f"{SD3_MODEL} request {i}", SD3_RESOLUTION)
+        check(fa.launches == SD3_LAUNCHES_PER_REQUEST,
+              f"{SD3_MODEL}: {fa.launches} flash launches, expected"
+              f" {SD3_LAUNCHES_PER_REQUEST}")
+        print(f"  {SD3_MODEL} request {i}: {seconds[-1]:.3f} s,"
+              f" {fa.launches} flash launches, MMDiT calls {counts}"
+              f" [{card}]", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(counts.get("mmdit.replay") == SD3_NFE,
+          f"the second request's MMDiT calls were not all replays: {counts}")
+    print(f"  {SD3_MODEL}: peak device memory {peak / 1e9:.2f} GB",
+          flush=True)
+    del engine, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "peak_bytes": peak, "attention_err": err}
+
+
 def main() -> None:
+    if "--phase" in sys.argv[1:] and sys.argv[-1] != "sd3":
+        print("chip_smoke: --phase takes sd3", file=sys.stderr)
+        sys.exit(2)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs"
               " an NVIDIA GPU", file=sys.stderr)
@@ -3309,6 +3398,13 @@ def main() -> None:
           f"python {sys.version.split()[0]}", flush=True)
     build_all(build)
     print("phase 1 ok: every CUDA library built and loaded", flush=True)
+    if "--phase" in sys.argv[1:]:
+        sd3 = phase_sd3(fa, card)
+        print(f"phase 14 ok: {SD3_MODEL} at {SD3_RESOLUTION}^2, {SD3_SOLVER}"
+              f" lambda={SD3_GUIDANCE} {SD3_NFE} NFE in"
+              f" {sd3['seconds'][-1]:.2f} s a request [{card}]", flush=True)
+        print(json.dumps({"ok": True, "sd3": sd3}), flush=True)
+        return
 
     table = KernelTable(card)
     phase_kernels(fa, tk, tc, rl, quantize_kernel_int8,
@@ -3419,6 +3515,12 @@ def main() -> None:
               " --quant_drift (all, dense: WITHIN-INT8-BUDGET),"
               f" tools/profile_bench.py in {time.perf_counter() - t0:.1f} s"
               f" [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    phase_sd3(fa, card)
+    print(f"phase 14 ok: {SD3_MODEL} at {SD3_RESOLUTION}^2: the joint"
+          f" attention's shape, one request, in {time.perf_counter() - t0:.1f}"
+          f" s [{card}]", flush=True)
 
     killed = stop_child_processes()
     print(f"  child processes stopped; killed beyond them: {killed or 'none'};"

@@ -162,7 +162,8 @@ def test_port_engine_makes_these_launches(monkeypatch, meta_bundle, name):
 
 
 def test_cli_models_and_lightning_command():
-    assert cli_common.MODELS == ALL_MODELS
+    # the JAX CLI's models, then the port's SD3 ones (no JAX counterpart)
+    assert cli_common.MODELS == ALL_MODELS + cli_common.SD3_MODELS
     parser = argparse.ArgumentParser()
     cli_common.add_common_args(parser)
     args = cli_common.parse_args(parser, [

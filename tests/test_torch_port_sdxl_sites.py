@@ -162,7 +162,7 @@ def test_cli_models_and_methods():
     the solvers of the model's family, the Lightning ones included."""
     assert cli_common.SDXL_MODELS == SDXL_MODELS
     assert cli_common.MODELS == cli_common.SD_MODELS + (
-        "sdxl", "sdxl_lightning", "tiny_sdxl")
+        "sdxl", "sdxl_lightning", "tiny_sdxl") + cli_common.SD3_MODELS
     parser = argparse.ArgumentParser()
     cli_common.add_common_args(parser)
     args = cli_common.parse_args(parser, ["--model", "sdxl", "--method",

@@ -88,4 +88,4 @@ def test_unknown_names_and_families_raise():
                        ".*dpm\\+\\+_2m_cfgpp"):
         registry.get_solver_spec("euler_a", "sdxl")
     with pytest.raises(ValueError, match="unknown model family"):
-        registry.list_solvers("sd3")
+        registry.list_solvers("flux")
