@@ -2,9 +2,11 @@
 preset on the CPU (``sd3_tiny.py``): whole runs of the ``sd35_large_b1``
 cell's mix, traced and not, correct against the tiny cell's limit; the
 check and the control (which fails that limit on every image); faults
-planted under a whole run, each not correct; and ``unit_flops`` equal to
+planted under a whole run, each not correct; ``unit_flops`` equal to
 ``FlopCounterMode``'s count of the reference, at the tiny size over a
-whole image and at published widths part by part on the meta device."""
+whole image and at published widths part by part on the meta device; and
+the kept cell's files found by name.  On the card, at the cell's own size:
+``python3 -m pytest bench_port/tests/test_bench_port_sd3.py -m card``."""
 
 import contextlib
 
@@ -20,7 +22,7 @@ from bench_port.families.sd3_mmdit import plain
 from bench_port.families.sd_unet import flops as sd_flops
 from bench_port.reference import models
 from bench_port.system import Program
-from bench_port.tests.sd3_tiny import tiny_sd3_cell
+from bench_port.tests.sd3_tiny import sd35_cell, tiny_sd3_cell
 from bench_port.traffic import Traffic
 
 SEED = 2 ** 31 + 3131
@@ -34,11 +36,12 @@ def test_whole_runs_are_correct(trace):
     assert result["attempted"] >= 1 and result["failed"] == 0
     metrics = result["metrics"]
     if trace:
-        assert metrics["mfu.sd35"]["value"] > 0
+        assert metrics["mfu.b1"]["value"] > 0
         for name in ("mmdit_ms_per_call.sd35", "t5_ms_per_unit.sd35",
-                     "device_idle_share.sd35"):
+                     "device_idle_share.b1", "vae_ms_per_image.b1",
+                     "text_ms_per_unit.b1"):
             assert name in metrics, name
-        assert "attn_roofline.sd35" not in metrics    # no kernel on the CPU
+        assert "attn_roofline.b1" not in metrics    # no kernel on the CPU
     else:
         assert set(metrics) == {"s_per_image", "p90_request_s", "setup_s"}
 
@@ -151,7 +154,7 @@ def counted(fn):
 
 @pytest.fixture(scope="module")
 def published():
-    return manifest.cell("sd35_large_b1")
+    return sd35_cell()
 
 
 def test_published_mmdit_call(published):
@@ -195,3 +198,37 @@ def test_the_family_is_loaded_by_name():
     assert set(fam.MODULES) == {"transformer", "vae", "text_encoder",
                                 "text_encoder_2", "text_encoder_3"}
     assert len(set(fam.MODULES.values())) == 5
+
+
+def test_the_kept_cell_is_found_by_name(published):
+    w = published["workload"]
+    assert published["config"]["name"] == w["config"]
+    assert published["mix"]["name"] == w["traffic"]
+    assert set(published["limits"]) == {"image_mae"}
+    assert {m["name"] for m in published["end_to_end"]} == {
+        "s_per_image", "p90_request_s", "setup_s"}
+    for m in published["per_layer"]:
+        assert m["moves"] == "s_per_image"
+        assert callable(manifest.reader(m["name"])), m["name"]
+    assert len(published["per_layer"]) == 7
+    families.load(published["config"]).check_config(published["config"])
+
+
+SEEDS = [2 ** 31 + 571, 2 ** 31 + 572, 2 ** 31 + 573]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("fault", [half_the_mmdit_batch_left_out,
+                                   t5_left_out], ids=lambda f: f.__name__)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_a_fault_at_the_cells_size_is_not_correct(seed, fault, card,
+                                                  monkeypatch):
+    """At lambda=0.6 with seeded weights the prompt moves the velocity less
+    than a trained model's would: leaving the unconditional half of each
+    MMDiT call out, or T5's tokens, still has to fail the cell's limit."""
+    from bench_port.run import set_environment
+    set_environment()
+    with fault(monkeypatch):
+        result, numbers = run.run_cell(sd35_cell(), seed, 3.0, False, card)
+    print(f"{fault.__name__} seed {seed}: {numbers}", flush=True)
+    assert not result["correct"], numbers
