@@ -2,13 +2,6 @@
 benchmark configuration, under the ``sd35_large_b1`` cell's mix at 16^2 and
 4 steps (two MMDiT blocks, the last ``context_pre_only``; 16 T5 tokens).
 
-``sd35_large_b1`` is a cell whose files the benchmark keeps though
-BENCHMARK.json leaves it out: the tests that walk every cell of
-BENCHMARK.json (``tiny.py:tiny_cell``, the run faults of
-``test_bench_port_run.py``, the FLOP range of ``test_bench_port_flops.py``)
-know only the SD UNet family.  ``KEPT`` holds the entries it would add,
-so that its configuration, mix, limit and readers are still tested here.
-
 The cell's limit is set from the card's runs at published widths, where 38
 blocks and 28 steps carry bfloat16's rounding further than two blocks and
 4 steps do; the tiny cell has its own, set the same way from its own
@@ -29,39 +22,11 @@ from bench_port.families.sd3_mmdit import PARTS
 TINY_IMAGE_MAE = 0.008
 
 CELL = "sd35_large_b1"
-KEPT = {
-    "configs": [{"name": "sd35_large",
-                 "file": "bench_port/configs/sd35_large.json"}],
-    "workloads": [{"name": CELL, "config": "sd35_large",
-                   "traffic": "flow_b1_cfgpp28", "chips": 1}],
-    "per_layer": [
-        {"name": "mmdit_ms_per_call.sd35", "unit": "ms", "better": "lower",
-         "source": "device_trace", "layer": "models: MMDiT (models/mmdit.py)",
-         "moves": "s_per_image", "workloads": [CELL]},
-        {"name": "t5_ms_per_unit.sd35", "unit": "ms", "better": "lower",
-         "source": "device_trace", "layer": "text encoder: T5 (models/t5.py)",
-         "moves": "s_per_image", "workloads": [CELL]}],
-}
-# the metrics that the cell would be appended to
-SHARED = ("s_per_image", "p90_request_s", "mfu.b1", "attn_roofline.b1",
-          "device_idle_share.b1", "vae_ms_per_image.b1", "text_ms_per_unit.b1")
-
-
-def with_sd35_cell() -> Dict:
-    """BENCHMARK.json with ``KEPT``'s entries and the cell appended to the
-    ``SHARED`` metrics' ``workloads``."""
-    bm = manifest.benchmark()
-    for key, entries in KEPT.items():
-        bm[key] += entries
-    for m in bm["end_to_end"] + bm["per_layer"]:
-        if m["name"] in SHARED:
-            m["workloads"] = m["workloads"] + [CELL]
-    return bm
 
 
 def sd35_cell() -> Dict:
     """``sd35_large_b1`` at published widths."""
-    return manifest.cell(CELL, with_sd35_cell())
+    return manifest.cell(CELL)
 
 
 def tiny_sd3_config(dtype: str = "float32") -> Dict:

@@ -5,7 +5,7 @@ check and the control (which fails that limit on every image); faults
 planted under a whole run, each not correct; ``unit_flops`` equal to
 ``FlopCounterMode``'s count of the reference, at the tiny size over a
 whole image and at published widths part by part on the meta device; and
-the kept cell's files found by name.  On the card, at the cell's own size:
+the cell's files found by name.  On the card, at the cell's own size:
 ``python3 -m pytest bench_port/tests/test_bench_port_sd3.py -m card``."""
 
 import contextlib
@@ -200,7 +200,7 @@ def test_the_family_is_loaded_by_name():
     assert len(set(fam.MODULES.values())) == 5
 
 
-def test_the_kept_cell_is_found_by_name(published):
+def test_the_cell_is_found_by_name(published):
     w = published["workload"]
     assert published["config"]["name"] == w["config"]
     assert published["mix"]["name"] == w["traffic"]
